@@ -1,0 +1,57 @@
+"""neural_renderer_torch — the PyTorch / CUDA port of neural_renderer_tpu.
+
+A differentiable 3D mesh renderer after the Neural 3D Mesh Renderer (Kato,
+Ushiku, Harada — CVPR 2018; reference implementation
+``hiroharu-kato/neural_renderer``), ported from the JAX package beside it to
+PyTorch with hand-written CUDA kernels for NVIDIA Hopper.
+
+This first slice is the forward render: camera transforms, lighting, the
+binned z-buffer with fused texture shading (``csrc/forward_shaded.cu``),
+background composite and anti-aliasing, behind the reference's flat API.
+The rasterizer's approximate backward, ``Mesh``, the optimizer, ``tune`` and
+OBJ saving are not ported yet.  The package imports no JAX; ``convert``
+carries a JAX ``Renderer``'s settings and numpy mesh arrays over.
+"""
+
+from neural_renderer_torch.ops.cross import cross
+from neural_renderer_torch.ops.transforms import (
+    get_points_from_angles,
+    look,
+    look_at,
+    perspective,
+)
+from neural_renderer_torch.ops.lighting import lighting
+from neural_renderer_torch.ops.vertices_to_faces import vertices_to_faces
+from neural_renderer_torch.rasterize.config import (
+    DEFAULT_ANTI_ALIASING,
+    DEFAULT_BACKGROUND_COLOR,
+    DEFAULT_EPS,
+    DEFAULT_FAR,
+    DEFAULT_IMAGE_SIZE,
+    DEFAULT_NEAR,
+    RasterizeSettings,
+)
+from neural_renderer_torch.rasterize.api import (
+    Rasterize,
+    rasterize,
+    rasterize_depth,
+    rasterize_rgbad,
+    rasterize_silhouettes,
+)
+from neural_renderer_torch.scene.renderer import Renderer
+from neural_renderer_torch.io.obj import load_obj, load_mtl
+from neural_renderer_torch.convert import arrays_from_numpy, renderer_from_jax
+
+__version__ = '0.1.0'
+
+__all__ = [
+    'cross', 'get_points_from_angles', 'look', 'look_at', 'perspective',
+    'lighting', 'vertices_to_faces',
+    'RasterizeSettings', 'Rasterize', 'rasterize', 'rasterize_depth',
+    'rasterize_rgbad', 'rasterize_silhouettes',
+    'DEFAULT_IMAGE_SIZE', 'DEFAULT_ANTI_ALIASING', 'DEFAULT_NEAR',
+    'DEFAULT_FAR', 'DEFAULT_EPS', 'DEFAULT_BACKGROUND_COLOR',
+    'Renderer',
+    'load_obj', 'load_mtl',
+    'renderer_from_jax', 'arrays_from_numpy',
+]

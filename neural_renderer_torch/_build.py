@@ -1,0 +1,67 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source under ``csrc/`` has a plain C interface.  At first use it
+is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library inside
+the package's ``_build/`` directory (listed in ``.gitignore``) and loaded
+with ``ctypes``.  The library's file name carries a hash of the source and
+the flags, so an edited source is rebuilt and a built one is reused.
+
+Flags: ``--fmad=false`` keeps every multiply and add separately rounded, as
+PyTorch's elementwise kernels round them, so the kernels agree with their
+plain PyTorch versions bit for bit; without it a fused multiply-add in an
+edge test or a barycentric weight can flip a near-tie z test.  Fast math is
+never used: ``1/z`` and the depth divisions stay IEEE.
+"""
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+_CSRC = pathlib.Path(__file__).resolve().parent / 'csrc'
+_BUILD_DIR = pathlib.Path(__file__).resolve().parent / '_build'
+_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+          '--fmad=false', '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC')
+
+
+def _nvcc():
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
+    path = os.path.join(home, 'bin', 'nvcc')
+    if not os.path.exists(path):
+        raise RuntimeError(
+            'nvcc not found (neither on PATH nor under CUDA_HOME or '
+            '/usr/local/cuda): the CUDA kernels cannot be built')
+    return path
+
+
+def build(name):
+    """Compile ``csrc/<name>.cu`` unless an up-to-date build exists.
+
+    Returns (path of the shared library, nvcc's output or '' when reused).
+    """
+    src = _CSRC / f'{name}.cu'
+    digest = hashlib.sha256(src.read_bytes()
+                            + ' '.join(_FLAGS).encode()).hexdigest()[:16]
+    lib = _BUILD_DIR / f'lib{name}-{digest}.so'
+    if lib.exists():
+        return lib, ''
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
+    proc = subprocess.run([_nvcc(), *_FLAGS, '-o', str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed to build {src}:\n{proc.stdout}'
+                           f'{proc.stderr}')
+    os.replace(tmp, lib)
+    return lib, proc.stdout + proc.stderr
+
+
+def load(name):
+    """The ctypes handle of kernel library ``name``, built at first use."""
+    path, _ = build(name)
+    return ctypes.CDLL(str(path))

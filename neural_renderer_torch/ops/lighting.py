@@ -1,0 +1,47 @@
+"""Ambient + directional face lighting baked into texture cubes.
+
+Reference ``neural_renderer/lighting.py:8-52``: face normal =
+normalize(cross(v0 - v1, v2 - v1)), cos = relu(dot(normal, direction)),
+``light = Ia*Ca + Id*Cd*cos`` broadcast over the whole per-face texture cube.
+Per-face (flat) shading, not per-pixel — matching the reference exactly.
+"""
+
+import torch
+
+from neural_renderer_torch.ops.cross import cross
+from neural_renderer_torch.ops.transforms import _as_batched_vec3, _normalize
+
+
+def lighting(
+        faces, textures, intensity_ambient=0.5, intensity_directional=0.5,
+        color_ambient=(1, 1, 1), color_directional=(1, 1, 1),
+        direction=(0, 1, 0)):
+    """Scale ``textures`` by per-face ambient + directional light.
+
+    faces: ``[bs, nf, 3, 3]`` world-space per-face vertex coords.
+    textures: ``[bs, nf, ts, ts, ts, 3]``.
+    """
+    bs, nf = faces.shape[:2]
+    dev = faces.device
+
+    color_ambient = _as_batched_vec3(color_ambient, bs, dev)
+    color_directional = _as_batched_vec3(color_directional, bs, dev)
+    direction = _as_batched_vec3(direction, bs, dev)
+
+    light = torch.zeros((bs, nf, 3), dtype=torch.float32, device=dev)
+
+    if not (isinstance(intensity_ambient, (int, float))
+            and intensity_ambient == 0):
+        light = light + intensity_ambient * color_ambient[:, None, :]
+
+    if not (isinstance(intensity_directional, (int, float))
+            and intensity_directional == 0):
+        v10 = faces[:, :, 0] - faces[:, :, 1]
+        v12 = faces[:, :, 2] - faces[:, :, 1]
+        normals = _normalize(cross(v10, v12))
+        cos = torch.relu(torch.sum(normals * direction[:, None, :], dim=2))
+        light = light + (intensity_directional
+                         * color_directional[:, None, :] * cos[:, :, None])
+
+    light = light[:, :, None, None, None, :]
+    return textures * light
