@@ -4,21 +4,43 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero; progress goes to stdout):
   1. the card: ``torch.cuda.is_available()``, name and power limit;
-  2. build the shaded-forward CUDA kernel from ``neural_renderer_torch/csrc``;
-  3. kernel against its plain PyTorch version on the card, inputs from
-     ``--seed``: random 64^2 scenes (no textures, ts 2/3/4) and the teapot at
-     a 512^2 raster (bs 4 ts 2, the golden batch at ts 4, and the main path's
-     bs 32 ts 2); face_index_map must match exactly, the other maps within
-     the stated tolerances; both timed at the main path's shape;
-  4. the main path: ``Renderer().render`` on the teapot at batch 32, 256^2
-     with anti-aliasing (512^2 raster), ts 2, over the 8 bench azimuths,
-     counting kernel launches;
+  2. build the CUDA kernels from ``neural_renderer_torch/csrc`` (one nvcc
+     each, all started together) and print ptxas' register and
+     shared-memory report;
+  3. the forward kernel against its plain PyTorch version on the card,
+     inputs from ``--seed``: random 64^2 scenes (no textures, ts 2/3/4) and
+     the teapot at a 512^2 raster (bs 4 ts 2, the golden batch at ts 4, and
+     the main path's bs 32 ts 2); face_index_map must match exactly, the
+     other maps within the stated tolerances; both timed at the main path's
+     shape;
+  4. the forward-only path: ``Renderer().render`` on the teapot at batch 32,
+     256^2 with anti-aliasing (512^2 raster), ts 2, over the 8 bench
+     azimuths, counting kernel launches;
   5. the golden check: the reference off-axis view (eye [1, 1, -2.7]) at ts
-     4 against ``tests/data/teapot_aa_rgb_fingerprint.npz`` (atol 1e-5).
+     4 against ``tests/data/teapot_aa_rgb_fingerprint.npz`` (atol 1e-5);
+  6. the backward kernels against their plain versions on the card: random
+     64^2 scenes (rgb + alpha, alpha only, rgb + alpha + depth), the teapot
+     at 512^2 (bs 4 ts 2), the golden batch at ts 4 (the all-zero meshes'
+     rows must be exactly 0) and the main path's bs 32 ts 2.  In-sweep: 0
+     mismatches.  Out-sweep and per-face reduction: |err| <= 1e-4 x the
+     channel's (column's) max |value|.  Every kernel result of a repeated
+     run is bitwise equal.  All three timed at the main path's shape;
+  7. the main path: a training step, forward plus ``sum(image).backward()``
+     with respect to vertices and textures, at batch 32, 256^2 AA, ts 2,
+     one step per bench azimuth after one warm-up step, counting launches
+     of every kernel (at least one per kernel per step);
+  8. a trainer: a ``Mesh`` of the teapot (ts 2) fitted by ``Adam`` for 10
+     steps at batch 32 (the 8 azimuths x 4), 256^2 AA, L2 against renders of
+     a shifted mesh; the loss must fall;
+  9. gradient anchors: the four hard-coded cases of tests/test_rasterize.py
+     and tests/test_rasterize_silhouettes.py at rtol 1e-2, and the teapot
+     silhouette gradient against tests/data/teapot_grad_fingerprint.npz
+     (|err| <= 1e-3 x max |grad|; the plain version on the CPU is within
+     2.43e-4 x max).
 
 The last stdout line is the JSON device record; the line before it lists each
-kernel with its launches on the main path, its worst error against the plain
-version and both times.
+kernel with its launches on the main path (phase 7), its worst error against
+the plain version and both times.
 """
 
 import argparse
@@ -33,14 +55,17 @@ import torch
 
 import neural_renderer_torch as nt
 from neural_renderer_torch import _build
-from neural_renderer_torch.rasterize import forward_cuda
+from neural_renderer_torch.rasterize import backward_cuda, core, forward_cuda
 from neural_renderer_torch.rasterize.config import RasterizeSettings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, 'tests', 'data')
 BATCH = 32
+OUT_SIZE = 256                 # the main path's output; its raster is 2x
+RASTER = 2 * OUT_SIZE
 AZIMUTHS = [float(a) for a in range(0, 360, 45)]
 DISTANCE, ELEVATION = 2.732, 30.0
+KERNELS = ('forward_shaded', 'backward_sweeps', 'face_reduce')
 
 # kernel vs plain: the same separately rounded f32 operations in the same
 # order, except that sums may be taken in another order
@@ -48,6 +73,23 @@ RTOL, ATOL = 1e-5, 1e-6
 # rgb: the 8 corner terms are summed per channel in the same order, but the
 # texel weights inherit the ulp noise of tif
 RGB_RTOL, RGB_ATOL = 1e-4, 1e-5
+# out-sweep and per-face sums: another summation order than torch's, over
+# up to is terms of one sign (out-sweep) or a face's pixels (reduction)
+SUM_TOL = 1e-4
+# the grad fingerprint was captured on a TPU; the plain version on the CPU
+# is within 2.43e-4 x max |grad| of it
+FINGERPRINT_TOL = 1e-3
+
+# tests/test_rasterize.py:79, :257 and tests/test_rasterize_silhouettes.py:
+# 53, :64: (vertices, pixel y, pixel x, on_face, d loss / d vertices)
+ANCHORS = [
+    ([[0.8, 0.8, 1.], [0.0, -0.5, 1.], [0.2, -0.4, 1.]], 25, 35, False,
+     [[1.6725862, -0.26021874, 0.], [1.41986704, -1.64284933, 0.],
+      [0., 0., 0.]]),
+    ([[0.8, 0.8, 1.], [-0.5, -0.8, 1.], [0.8, -0.8, 1.]], 40, 50, True,
+     [[0.98646867, 1.04628897, 0.], [-1.03415668, -0.10403691, 0.],
+      [3.00094461, -1.55173182, 0.]]),
+]
 
 
 def _require(cond, msg):
@@ -62,6 +104,17 @@ def _log(*args):
 def _teapot():
     vertices, faces = nt.load_obj(os.path.join(DATA, 'teapot.obj'))
     return vertices, faces
+
+
+def _reset_launches():
+    forward_cuda.LAUNCHES = 0
+    for k in backward_cuda.LAUNCHES:
+        backward_cuda.LAUNCHES[k] = 0
+
+
+def _launches():
+    return dict(forward_shaded=forward_cuda.LAUNCHES,
+                **backward_cuda.LAUNCHES)
 
 
 def _raster_inputs(vertices, faces, textures, eyes, image_size, dev):
@@ -123,9 +176,10 @@ def _time_ms(fn, reps, warmup=1):
     return start.elapsed_time(stop) / reps
 
 
-def _kernel_device_ms(fn, reps):
-    """Device time of the CUDA kernel alone per call, from torch.profiler;
-    None where the profiler reports no device time."""
+def _kernel_device_ms(fn, reps, kernel_name):
+    """Device time per call of the CUDA kernels whose name contains
+    ``kernel_name``, from torch.profiler; None where the profiler reports
+    no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -136,10 +190,142 @@ def _kernel_device_ms(fn, reps):
         torch.cuda.synchronize()
     total = 0.0
     for ev in prof.key_averages():
-        if 'shaded_kernel' in ev.key:
+        if kernel_name in ev.key:
             total += getattr(ev, 'device_time_total',
                              getattr(ev, 'cuda_time_total', 0.0))
     return total / 1000.0 / reps if total > 0 else None
+
+
+def _fmt_ms(x):
+    return 'not measured' if x is None else f'{x:.3f} ms'
+
+
+def _sum_check(name, got, want, axis):
+    """|got - want| <= SUM_TOL x max |want| per slice along ``axis``;
+    returns (max abs err, worst err / channel max)."""
+    dims = [d for d in range(want.ndim) if d != axis]
+    scale = want.abs().amax(dim=dims, keepdim=True)
+    err = (got - want).abs()
+    _require(bool(torch.isfinite(got).all()), f'{name}: non-finite values')
+    _require(bool((err <= SUM_TOL * scale).all()),
+             f'{name}: differs from the plain version by up to '
+             f'{float(err.max())} (tolerance {SUM_TOL} x channel max)')
+    ratio = float((err / scale.clamp(min=1e-30)).max())
+    return float(err.max()), ratio
+
+
+def _bwd_scene(settings, faces, textures, rng, dev):
+    """The forward maps of one scene (through the forward kernel) and
+    random output gradients from ``rng``."""
+    bs, nf = faces.shape[:2]
+    if textures is None:
+        textures = torch.zeros((bs, nf, 1, 1, 1, 3), device=dev)
+    rgb, _, _, maps = core._forward_all(settings, faces, textures,
+                                        torch.zeros(3, device=dev))
+    maps['rgb'] = rgb if settings.return_rgb else None
+    is_ = settings.image_size
+
+    def g(*shape):
+        return torch.as_tensor(rng.normal(0, 1, shape).astype(np.float32),
+                               device=dev)
+
+    grads = dict(g_rgb=g(bs, is_, is_, 3), g_alpha=g(bs, is_, is_),
+                 g_depth=g(bs, is_, is_))
+    return maps, grads
+
+
+def _sweep_args(settings, maps, grads):
+    rgb = grgb = ga = None
+    if settings.return_rgb:
+        rgb = maps['rgb'].permute(0, 3, 1, 2).contiguous()
+        grgb = grads['g_rgb'].permute(0, 3, 1, 2).contiguous()
+    if settings.return_alpha:
+        ga = grads['g_alpha']
+    return (settings, maps['xy'], maps['face_index_map'], rgb, grgb, ga)
+
+
+def _channel_stack(settings, maps, grads, nf, ts):
+    k5 = settings.return_rgb or settings.return_alpha
+    k6 = ts if settings.return_rgb and ts <= core.MAX_FACTOR_TS else 0
+    stack = core.channel_stack(settings, maps, grads['g_rgb'],
+                               grads['g_alpha'], grads['g_depth'], k5,
+                               settings.return_depth, k6)
+    return stack, k6
+
+
+def _compare_backward(name, settings, maps, grads, nf, ts, worst):
+    """The three backward kernels against their plain versions on one
+    scene, and each kernel's repeat run bitwise equal; updates ``worst``
+    (max abs error per kernel) and returns the per-face sums."""
+    fim = maps['face_index_map']
+    msg = [f'compare backward {name}:']
+    if settings.return_rgb or settings.return_alpha:
+        args = _sweep_args(settings, maps, grads)
+        got = backward_cuda.insweep(*args)
+        again = backward_cuda.insweep(*args)
+        want = backward_cuda.insweep_plain(*args)
+        torch.cuda.synchronize()
+        mism = int((got != want).sum())
+        nonzero = int((want != 0).sum())
+        _require(bool(torch.equal(got, again)), f'{name}: insweep repeat '
+                 'run differs')
+        _require(mism == 0, f'{name}: insweep {mism} mismatches')
+        worst['insweep'] = max(worst['insweep'],
+                               float((got - want).abs().max()))
+        msg.append(f'insweep mismatches {mism} (nonzero {nonzero});')
+
+        got = backward_cuda.outsweep(*args)
+        again = backward_cuda.outsweep(*args)
+        want = backward_cuda.outsweep_plain(*args)
+        torch.cuda.synchronize()
+        _require(bool(torch.equal(got, again)), f'{name}: outsweep repeat '
+                 'run differs')
+        err, ratio = _sum_check(f'{name} outsweep', got, want, 1)
+        worst['outsweep'] = max(worst['outsweep'], err)
+        msg.append(f'outsweep max abs err {err} ({ratio:.3g} x channel '
+                   f'max, nonzero {int((want != 0).sum())});')
+
+    stack, k6 = _channel_stack(settings, maps, grads, nf, ts)
+    got = backward_cuda.face_reduce(stack, fim, nf, k6)
+    stack2, _ = _channel_stack(settings, maps, grads, nf, ts)
+    again = backward_cuda.face_reduce(stack2, fim, nf, k6)
+    want = backward_cuda.face_reduce_plain(stack, fim, nf, k6)
+    torch.cuda.synchronize()
+    _require(bool(torch.equal(stack, stack2)), f'{name}: channel stack '
+             'repeat run differs')
+    _require(bool(torch.equal(got, again)), f'{name}: face_reduce repeat '
+             'run differs')
+    err, ratio = _sum_check(f'{name} face_reduce', got, want, 1)
+    worst['face_reduce'] = max(worst['face_reduce'], err)
+    msg.append(f'face_reduce [{stack.shape[1]} ch -> {got.shape[1]} cols] '
+               f'max abs err {err} ({ratio:.3g} x column max); repeat '
+               'runs bitwise equal')
+    _log(' '.join(msg))
+    return got
+
+
+def _anchor_grad(vertices, pyi, pxi, on_face, mode, dev):
+    r = nt.Renderer()
+    r.image_size = 64
+    r.anti_aliasing = False
+    r.perspective = False
+    r.light_intensity_ambient = 1.0
+    r.light_intensity_directional = 0.0
+    v = np.zeros((4, 3, 3), np.float32)
+    v[2] = vertices
+    f = np.zeros((4, 1, 3), np.int64)
+    f[2] = [0, 1, 2]
+    vt, ft, tt = nt.arrays_from_numpy(
+        v, f, np.ones((4, 1, 4, 4, 4, 3), np.float32), dev)
+    vt.requires_grad_()
+    if mode == 'rgb':
+        images = r.render(vt, ft, tt).mean(1)
+    else:
+        images = r.render_silhouettes(vt, ft)
+    x = images[:, pyi, pxi]
+    loss = x.abs().sum() if on_face else (x - 1).abs().sum()
+    loss.backward()
+    return vt.grad.cpu().numpy()
 
 
 def main():
@@ -162,16 +348,21 @@ def main():
     _log(f'torch {torch.__version__} cuda {torch.version.cuda} '
          f'python {sys.version.split()[0]}')
     _log(f'device: {kind}; nvidia-smi: {smi}')
+    _log(smi)
 
     # ---- 2. build ----
     t0 = time.time()
-    path, log = _build.build('forward_shaded')
+    built = _build.build_all(KERNELS)
     forward_cuda._kernel()
-    _log(f'build: {path.name} in {time.time() - t0:.1f} s')
-    if log.strip():
-        _log(log.strip())
+    backward_cuda._sweeps()
+    backward_cuda._reduce()
+    _log(f'build: {", ".join(p.name for p, _ in built.values())} in '
+         f'{time.time() - t0:.1f} s')
+    for name, (_, log) in built.items():
+        if log.strip():
+            _log(f'[{name}]\n{log.strip()}')
 
-    # ---- 3. kernel vs plain ----
+    # ---- 3. forward kernel vs plain ----
     worst = 0.0
     for ts in (None, 2, 3, 4):
         fc = rng.uniform(-0.9, 0.9, (2, 40, 3, 3)).astype(np.float32)
@@ -184,12 +375,14 @@ def main():
                                     torch.as_tensor(fc, device=dev), tx))
 
     vertices, faces = _teapot()
+    nf2 = 2 * faces.shape[0]
     eyes = [nt.get_points_from_angles(DISTANCE, ELEVATION, a)
             for a in AZIMUTHS]
-    s512 = RasterizeSettings(image_size=512, eps=1e-3)
+    s512 = RasterizeSettings(image_size=RASTER, eps=1e-3)
     tex2 = rng.uniform(0, 1, (faces.shape[0], 2, 2, 2, 3)).astype(np.float32)
-    fc4, tx4 = _raster_inputs(vertices, faces, tex2, eyes[::2], 512, dev)
-    worst = max(worst, _compare('teapot 512^2 bs 4 ts 2', s512, fc4, tx4))
+    fc4, tx4 = _raster_inputs(vertices, faces, tex2, eyes[::2], RASTER, dev)
+    worst = max(worst, _compare(f'teapot {RASTER}^2 bs 4 ts 2', s512, fc4,
+                                tx4))
 
     # the golden batch: rows 0, 1, 3 are all-zero meshes (degenerate faces)
     gold = nt.Renderer()
@@ -201,13 +394,15 @@ def main():
     tz = np.zeros((4, faces.shape[0], 4, 4, 4, 3), np.float32)
     tz[2] = rng.uniform(0, 1, tz.shape[1:])
     fcg, txg = gold._lit_faces(*nt.arrays_from_numpy(vz, fz, tz, dev))
-    worst = max(worst, _compare('golden batch 512^2 bs 4 ts 4', s512, fcg,
-                                txg))
+    worst = max(worst, _compare(f'golden batch {RASTER}^2 bs 4 ts 4', s512,
+                                fcg, txg))
 
     fc32, tx32 = _raster_inputs(vertices, faces, tex2,
-                                [e for e in eyes for _ in range(4)], 512, dev)
-    worst = max(worst, _compare('teapot 512^2 bs 32 ts 2 (main path shape)',
-                                s512, fc32, tx32))
+                                [e for e in eyes for _ in range(BATCH // 8)],
+                                RASTER, dev)
+    worst = max(worst, _compare(
+        f'teapot {RASTER}^2 bs {BATCH} ts 2 (main path shape)', s512, fc32,
+        tx32))
 
     def kernel():
         return forward_cuda.forward_shaded(s512, fc32, tx32)
@@ -219,23 +414,23 @@ def main():
     plain_ms = _time_ms(plain, reps=3)
     ms_again = _time_ms(kernel, reps=20)
     plain_ms_again = _time_ms(plain, reps=3)
-    kernel_only = _kernel_device_ms(kernel, reps=10)
-    _log(f'time at bs 32, 512^2, nf {2 * faces.shape[0]}, ts 2 on {smi}: '
+    kernel_only = _kernel_device_ms(kernel, 10, 'shaded_kernel')
+    _log(f'time at bs {BATCH}, {RASTER}^2, nf {nf2}, ts 2 on {smi}: '
          f'forward_shaded {ms:.3f} / {ms_again:.3f} ms, plain '
          f'{plain_ms:.3f} / {plain_ms_again:.3f} ms (kernel, plain, kernel, '
-         'plain); kernel alone (profiler) '
-         + ('not measured' if kernel_only is None
-            else f'{kernel_only:.3f} ms'))
+         f'plain); kernel alone (profiler) {_fmt_ms(kernel_only)}')
+    times = {'forward_shaded': (ms, plain_ms)}
 
-    # ---- 4. the main path ----
+    # ---- 4. the forward-only path ----
     v = torch.as_tensor(np.tile(vertices[None], (BATCH, 1, 1)), device=dev)
     f = torch.as_tensor(np.tile(faces[None], (BATCH, 1, 1)), device=dev)
     t = torch.ones((BATCH, faces.shape[0], 2, 2, 2, 3), device=dev)
     renderer = nt.Renderer()
+    renderer.image_size = OUT_SIZE
     renderer.eye = eyes[0]
     renderer.render(v, f, t)                     # warm-up
     torch.cuda.synchronize()
-    forward_cuda.LAUNCHES = 0
+    _reset_launches()
     t0 = time.perf_counter()
     images = []
     for eye in eyes:
@@ -243,40 +438,224 @@ def main():
         images.append(renderer.render(v, f, t))
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = forward_cuda.LAUNCHES
-    _require(launches >= len(eyes),
-             f'main path launched the kernel {launches} times for '
-             f'{len(eyes)} renders')
+    fwd_launches = _launches()
+    _require(fwd_launches['forward_shaded'] >= len(eyes),
+             f'forward path launched the kernel '
+             f'{fwd_launches["forward_shaded"]} times for {len(eyes)} renders')
     images = torch.stack(images)
-    _require(tuple(images.shape) == (len(eyes), BATCH, 3, 256, 256),
+    _require(tuple(images.shape) == (len(eyes), BATCH, 3, OUT_SIZE, OUT_SIZE),
              f'unexpected image shape {tuple(images.shape)}')
     _require(bool(torch.isfinite(images).all()), 'non-finite pixels')
     _require(bool((images.flatten(2).amax(-1) > 0.5).all()),
              'an empty teapot row')
-    _log(f'main path: {len(eyes)} renders x batch {BATCH}, 256^2 AA, ts 2: '
-         f'{elapsed:.4f} s, {len(eyes) * BATCH / elapsed:.2f} images/s '
-         f'(forward only) on {smi}; kernel launches {launches}')
+    _log(f'forward path: {len(eyes)} renders x batch {BATCH}, {OUT_SIZE}^2 '
+         f'AA, ts 2: {elapsed:.4f} s, {len(eyes) * BATCH / elapsed:.2f} '
+         f'images/s (forward only) on {smi}; launches {fwd_launches}')
 
     # ---- 5. golden ----
     ref = np.load(os.path.join(DATA, 'teapot_aa_rgb_fingerprint.npz'))
-    tz = np.ones((4, faces.shape[0], 4, 4, 4, 3), np.float32)
-    img = gold.render(*nt.arrays_from_numpy(vz, fz, tz, dev)).cpu().numpy()
+    tz1 = np.ones((4, faces.shape[0], 4, 4, 4, 3), np.float32)
+    img = gold.render(*nt.arrays_from_numpy(vz, fz, tz1, dev)).cpu().numpy()
     err = float(np.abs(img[2] - ref['image']).max())
     _log(f'golden: AA ts 4 fingerprint max abs err {err} (atol 1e-5); '
          f'zero rows max {float(np.abs(img[[0, 1, 3]]).max())}')
     _require(err <= 1e-5, f'fingerprint differs by {err}')
     _require(np.abs(img[[0, 1, 3]]).max() == 0, 'zero rows not empty')
 
+    # ---- 6. backward kernels vs plain ----
+    bworst = dict(insweep=0.0, outsweep=0.0, face_reduce=0.0)
+    for mode, flags in (('rgb + alpha', (True, True, False)),
+                        ('alpha only', (False, True, False)),
+                        ('rgb + alpha + depth', (True, True, True))):
+        fc = rng.uniform(-0.9, 0.9, (2, 40, 3, 3)).astype(np.float32)
+        fc[..., 2] = 1.0 + 0.3 * fc[..., 2]
+        tx = torch.as_tensor(rng.uniform(0, 1, (2, 40, 2, 2, 2, 3)).astype(
+            np.float32), device=dev)
+        s = RasterizeSettings(image_size=64, eps=1e-3, return_rgb=flags[0],
+                              return_alpha=flags[1], return_depth=flags[2])
+        maps, grads = _bwd_scene(s, torch.as_tensor(fc, device=dev), tx, rng,
+                                 dev)
+        _compare_backward(f'random 64^2 nf 40 ts 2 {mode}', s, maps, grads,
+                          40, 2, bworst)
+
+    s_all = RasterizeSettings(image_size=RASTER, eps=1e-3)
+    maps, grads = _bwd_scene(s_all, fc4, tx4, rng, dev)
+    _compare_backward(f'teapot {RASTER}^2 bs 4 ts 2 rgb + alpha + depth',
+                      s_all, maps, grads, nf2, 2, bworst)
+
+    s_rgb = RasterizeSettings(image_size=RASTER, eps=1e-3, return_alpha=False,
+                              return_depth=False)
+    maps, grads = _bwd_scene(s_rgb, fcg, txg, rng, dev)
+    sums = _compare_backward(f'golden batch {RASTER}^2 bs 4 ts 4 rgb', s_rgb,
+                             maps, grads, nf2, 4, bworst)
+    rows = sums.reshape(4, nf2, -1)
+    zero_max = float(rows[[0, 1, 3]].abs().max())
+    _log(f'golden batch: all-zero meshes\' gradient rows max |value| '
+         f'{zero_max}; teapot row max {float(rows[2].abs().max())}')
+    _require(zero_max == 0, 'all-zero meshes got gradient')
+
+    maps, grads = _bwd_scene(s_rgb, fc32, tx32, rng, dev)
+    _compare_backward(f'teapot {RASTER}^2 bs {BATCH} ts 2 rgb (main path '
+                      'shape)', s_rgb, maps, grads, nf2, 2, bworst)
+
+    # the whole rasterizer backward, twice: gradients of the NDC faces and
+    # the textures bitwise equal
+    def rasterizer_grads():
+        fl = fc32.clone().requires_grad_()
+        tl = tx32.clone().requires_grad_()
+        image = nt.rasterize(fl, tl, OUT_SIZE)
+        (image * grads['g_rgb'][:, :OUT_SIZE, :OUT_SIZE].permute(
+            0, 3, 1, 2)).sum().backward()
+        return fl.grad, tl.grad
+
+    g1, g2 = rasterizer_grads(), rasterizer_grads()
+    _require(all(bool(torch.equal(a, b)) for a, b in zip(g1, g2)),
+             'the rasterizer backward is not deterministic')
+    _log(f'rasterizer backward twice at bs {BATCH} {RASTER}^2: face and '
+         'texture gradients bitwise equal (max |grad| '
+         f'{float(g1[0].abs().max()):.6g}, {float(g1[1].abs().max()):.6g})')
+    del g1, g2
+    sweep = _sweep_args(s_rgb, maps, grads)
+    stack, k6 = _channel_stack(s_rgb, maps, grads, nf2, 2)
+    fim = maps['face_index_map']
+    bench = {
+        'insweep': (lambda: backward_cuda.insweep(*sweep),
+                    lambda: backward_cuda.insweep_plain(*sweep),
+                    'insweep_kernel', 20, 3),
+        'outsweep': (lambda: backward_cuda.outsweep(*sweep),
+                     lambda: backward_cuda.outsweep_plain(*sweep),
+                     'outsweep_kernel', 10, 1),
+        'face_reduce': (lambda: backward_cuda.face_reduce(stack, fim, nf2, k6),
+                        lambda: backward_cuda.face_reduce_plain(
+                            stack, fim, nf2, k6),
+                        'face_reduce_kernel', 20, 3),
+    }
+    for name, (kern, plain_fn, kname, reps, preps) in bench.items():
+        k1 = _time_ms(kern, reps=reps, warmup=2)
+        p1 = _time_ms(plain_fn, reps=preps)
+        k2 = _time_ms(kern, reps=reps)
+        p2 = _time_ms(plain_fn, reps=preps)
+        alone = _kernel_device_ms(kern, 5, kname)
+        times[name] = (k1, p1)
+        _log(f'time at bs {BATCH}, {RASTER}^2, rgb, ts 2 ({stack.shape[1]} '
+             f'stack channels) on {smi}: {name} {k1:.3f} / {k2:.3f} ms, '
+             f'plain {p1:.3f} / {p2:.3f} ms (kernel, plain, kernel, plain); '
+             f'kernel alone (profiler) {_fmt_ms(alone)}')
+    del stack, maps, grads, sweep
+
+    # ---- 7. the main path: training steps ----
+    vg = v.clone().requires_grad_()
+    tg = torch.as_tensor(np.tile(tex2[None], (BATCH, 1, 1, 1, 1, 1)),
+                         device=dev).requires_grad_()
+    trainer = nt.Renderer()
+    trainer.image_size = OUT_SIZE
+
+    def step(eye):
+        trainer.eye = eye
+        vg.grad = None
+        tg.grad = None
+        image = trainer.render(vg, f, tg)
+        image.sum().backward()
+        return image
+
+    step(eyes[0])                                 # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    for eye in eyes:
+        step(eye)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _launches()
+    for name, n in launches.items():
+        _require(n >= len(eyes), f'training path launched {name} {n} times '
+                 f'in {len(eyes)} steps')
+    for name, g in (('vertices', vg.grad), ('textures', tg.grad)):
+        _require(g is not None and bool(torch.isfinite(g).all())
+                 and float(g.abs().max()) > 0,
+                 f'{name} gradient missing, non-finite or zero')
+    _log(f'main path (training): {len(eyes)} steps x batch {BATCH}, '
+         f'{OUT_SIZE}^2 AA, ts 2, forward + sum(image).backward() w.r.t. '
+         f'vertices and textures: {elapsed:.4f} s, '
+         f'{len(eyes) * BATCH / elapsed:.2f} training images/s on {smi}; '
+         f'launches {launches}; max |grad| vertices '
+         f'{float(vg.grad.abs().max()):.6g} textures '
+         f'{float(tg.grad.abs().max()):.6g}')
+    del vg, tg
+
+    # ---- 8. a trainer ----
+    mesh = nt.Mesh.from_obj(os.path.join(DATA, 'teapot.obj'), texture_size=2,
+                            seed=args.seed).to(dev)
+    fit = nt.Renderer()
+    fit.image_size = OUT_SIZE
+    fit.eye = np.array([e for e in eyes for _ in range(BATCH // 8)],
+                       np.float32)
+    with torch.no_grad():
+        tv, tf, tt = mesh.get_batch(BATCH)
+        shift = torch.tensor([0.05, 0.03, 0.0], device=dev)
+        target = fit.render(tv + shift, tf, 1.0 - tt)
+    opt = nt.Adam(mesh.lr_scales(), alpha=0.01)
+    losses = []
+    for _ in range(10):
+        opt.zero_grad()
+        bv, bf, bt = mesh.get_batch(BATCH)
+        loss = ((fit.render(bv, bf, bt) - target) ** 2).sum()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    _log(f'trainer: Mesh (teapot, ts 2) + Adam(alpha 0.01), batch {BATCH} '
+         f'(8 azimuths x {BATCH // 8}), {OUT_SIZE}^2 AA, L2 to a shifted '
+         f'mesh; loss {" ".join(f"{x:.2f}" for x in losses)}')
+    _require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+             'the loss did not fall')
+
+    # ---- 9. gradient anchors ----
+    for ci, (verts, pyi, pxi, on_face, want) in enumerate(ANCHORS):
+        for mode in ('sil', 'rgb'):
+            got = _anchor_grad(verts, pyi, pxi, on_face, mode, dev)
+            full = np.zeros((4, 3, 3), np.float32)
+            full[2] = want
+            err = float(np.abs(got - full).max())
+            ok = np.allclose(got, full, rtol=1e-2, atol=1e-5)
+            _log(f'anchor case {ci + 1} {mode}: max abs err {err} '
+                 f'(rtol 1e-2, atol 1e-5) {"ok" if ok else "FAILED"}')
+            _require(ok, f'gradient anchor case {ci + 1} {mode} failed')
+    ref = np.load(os.path.join(DATA, 'teapot_grad_fingerprint.npz'))
+    r64 = nt.Renderer()
+    r64.image_size = 64
+    r64.anti_aliasing = False
+    vt, ft, _ = nt.arrays_from_numpy(vz, fz, None, dev)
+    vt.requires_grad_()
+    (r64.render_silhouettes(vt, ft)
+     * torch.as_tensor(ref['seed'], device=dev)).sum().backward()
+    g = vt.grad.cpu().numpy()
+    scale = float(np.abs(ref['grad']).max())
+    err = float(np.abs(g - ref['grad']).max())
+    _log(f'grad fingerprint: max abs err {err} = {err / scale:.3g} x max '
+         f'|grad| (tolerance {FINGERPRINT_TOL} x max); zero rows max '
+         f'{float(np.abs(g[[0, 1, 3]]).max())}')
+    _require(err <= FINGERPRINT_TOL * scale, 'grad fingerprint differs')
+    _require(np.abs(g[[0, 1, 3]]).max() == 0, 'zero rows got gradient')
+
+    sources = {
+        'forward_shaded': ('neural_renderer_torch/csrc/forward_shaded.cu',
+                           'neural_renderer_tpu/rasterize/'
+                           'forward_pallas.py:636', worst),
+        'insweep': ('neural_renderer_torch/csrc/backward_sweeps.cu',
+                    'neural_renderer_tpu/rasterize/backward_pallas.py:68',
+                    bworst['insweep']),
+        'outsweep': ('neural_renderer_torch/csrc/backward_sweeps.cu',
+                     'neural_renderer_tpu/rasterize/backward_pallas.py:276',
+                     bworst['outsweep']),
+        'face_reduce': ('neural_renderer_torch/csrc/face_reduce.cu',
+                        'neural_renderer_tpu/rasterize/backward_pallas.py:867',
+                        bworst['face_reduce']),
+    }
     _log(json.dumps({'kernels': [{
-        'name': 'forward_shaded',
-        'route': 'cuda',
-        'source': 'neural_renderer_torch/csrc/forward_shaded.cu',
-        'replaces': 'neural_renderer_tpu/rasterize/forward_pallas.py:636',
-        'launches': launches,
-        'max_abs_err': worst,
-        'ms': ms,
-        'plain_ms': plain_ms,
-    }]}))
+        'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
+        'launches': launches[name], 'max_abs_err': err_k,
+        'ms': times[name][0], 'plain_ms': times[name][1],
+    } for name, (src, rep, err_k) in sources.items()]}))
     _log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}))

@@ -5,12 +5,17 @@ Ushiku, Harada — CVPR 2018; reference implementation
 ``hiroharu-kato/neural_renderer``), ported from the JAX package beside it to
 PyTorch with hand-written CUDA kernels for NVIDIA Hopper.
 
-This first slice is the forward render: camera transforms, lighting, the
-binned z-buffer with fused texture shading (``csrc/forward_shaded.cu``),
-background composite and anti-aliasing, behind the reference's flat API.
-The rasterizer's approximate backward, ``Mesh``, the optimizer, ``tune`` and
-OBJ saving are not ported yet.  The package imports no JAX; ``convert``
-carries a JAX ``Renderer``'s settings and numpy mesh arrays over.
+Ported so far: the forward render (camera transforms, lighting, the binned
+z-buffer with fused texture shading, ``csrc/forward_shaded.cu``, background
+composite and anti-aliasing, ``'approx'`` included) and its approximate
+backward through ``torch.autograd`` (the K5 sweeps,
+``csrc/backward_sweeps.cu``; the per-face reduction with the K6 texture
+cells, ``csrc/face_reduce.cu``; K7 depth and the exact background
+gradient), behind the reference's flat API, plus the trainable ``Mesh`` and
+the custom ``Adam``.  ``tune``, ``parallel``, OBJ saving and the examples
+are not ported yet (ROADMAP Queue 1).  The package imports no JAX;
+``convert`` carries a JAX ``Renderer``'s settings, a JAX ``Mesh`` and numpy
+mesh arrays over.
 """
 
 from neural_renderer_torch.ops.cross import cross
@@ -38,9 +43,15 @@ from neural_renderer_torch.rasterize.api import (
     rasterize_rgbad,
     rasterize_silhouettes,
 )
+from neural_renderer_torch.scene.mesh import Mesh
 from neural_renderer_torch.scene.renderer import Renderer
+from neural_renderer_torch.optim import Adam
 from neural_renderer_torch.io.obj import load_obj, load_mtl
-from neural_renderer_torch.convert import arrays_from_numpy, renderer_from_jax
+from neural_renderer_torch.convert import (
+    arrays_from_numpy,
+    mesh_from_jax,
+    renderer_from_jax,
+)
 
 __version__ = '0.1.0'
 
@@ -51,7 +62,7 @@ __all__ = [
     'rasterize_rgbad', 'rasterize_silhouettes',
     'DEFAULT_IMAGE_SIZE', 'DEFAULT_ANTI_ALIASING', 'DEFAULT_NEAR',
     'DEFAULT_FAR', 'DEFAULT_EPS', 'DEFAULT_BACKGROUND_COLOR',
-    'Renderer',
+    'Mesh', 'Renderer', 'Adam',
     'load_obj', 'load_mtl',
-    'renderer_from_jax', 'arrays_from_numpy',
+    'renderer_from_jax', 'arrays_from_numpy', 'mesh_from_jax',
 ]

@@ -39,26 +39,50 @@ def _nvcc():
     return path
 
 
-def build(name):
-    """Compile ``csrc/<name>.cu`` unless an up-to-date build exists.
-
-    Returns (path of the shared library, nvcc's output or '' when reused).
-    """
+def _target(name):
     src = _CSRC / f'{name}.cu'
     digest = hashlib.sha256(src.read_bytes()
                             + ' '.join(_FLAGS).encode()).hexdigest()[:16]
-    lib = _BUILD_DIR / f'lib{name}-{digest}.so'
-    if lib.exists():
-        return lib, ''
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
-    proc = subprocess.run([_nvcc(), *_FLAGS, '-o', str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed to build {src}:\n{proc.stdout}'
-                           f'{proc.stderr}')
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    return src, _BUILD_DIR / f'lib{name}-{digest}.so'
+
+
+def build_all(names):
+    """Compile ``csrc/<name>.cu`` for every name that has no up-to-date
+    build, one ``nvcc`` process each, all started together.
+
+    Returns {name: (path of the shared library, nvcc's output or '' when
+    reused)}; raises if any build fails (after all have finished).
+    """
+    started = {}
+    done = {}
+    for name in names:
+        src, lib = _target(name)
+        if lib.exists():
+            done[name] = (lib, '')
+            continue
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
+        proc = subprocess.Popen([_nvcc(), *_FLAGS, '-o', str(tmp), str(src)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started[name] = (src, lib, tmp, proc)
+    failed = []
+    for name, (src, lib, tmp, proc) in started.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f'nvcc failed to build {src}:\n{log}')
+            continue
+        os.replace(tmp, lib)
+        done[name] = (lib, log)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return done
+
+
+def build(name):
+    """``build_all`` for one kernel source: (library path, nvcc's output or
+    '' when reused)."""
+    return build_all([name])[name]
 
 
 def load(name):

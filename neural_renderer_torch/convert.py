@@ -9,12 +9,14 @@ device.  The JAX renderer's ``perf_overrides`` are TPU knobs with no
 counterpart here and are not copied.
 
 ``arrays_from_numpy`` turns mesh arrays (e.g. from ``load_obj``, or the JAX
-``Mesh.get_batch`` after ``np.asarray``) into tensors.
+``Mesh.get_batch`` after ``np.asarray``) into tensors, and ``mesh_from_jax``
+a JAX ``Mesh`` into this package's ``Mesh``.
 """
 
 import numpy as np
 import torch
 
+from neural_renderer_torch.scene.mesh import Mesh
 from neural_renderer_torch.scene.renderer import Renderer
 
 # every Renderer setting, in the order of the JAX Renderer's __init__
@@ -64,3 +66,13 @@ def arrays_from_numpy(vertices, faces, textures=None, device=None):
         textures = torch.tensor(np.asarray(textures, np.float32),
                                 device=device)
     return vertices, faces, textures
+
+
+def mesh_from_jax(m, device=None):
+    """A ``neural_renderer_torch.Mesh`` holding the arrays of the JAX mesh
+    ``m`` (duck-typed: ``vertices``, ``textures``, ``faces``,
+    ``lr_vertices``, ``lr_textures``), on ``device``."""
+    textures = None if m.textures is None else np.asarray(m.textures)
+    return Mesh(np.asarray(m.vertices), textures, np.asarray(m.faces),
+                lr_vertices=m.lr_vertices,
+                lr_textures=m.lr_textures).to(device)

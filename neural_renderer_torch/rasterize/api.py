@@ -3,7 +3,8 @@
 Mirrors the reference wrappers (``rasterize.py:900-1065``) and the JAX
 package's ``api.py``: 2x supersampling for anti-aliasing, NCHW transpose +
 vertical flip, 2x2 average-pool downsample, and the rgb / silhouettes / depth
-convenience functions.  Outputs lie on the device of ``faces``.
+convenience functions.  Outputs lie on the device of ``faces``.  All are
+differentiable (autograd runs the flip and pool around ``RasterizeCore``).
 """
 
 import numpy as np
@@ -67,6 +68,20 @@ def _check_inputs(faces, textures, return_rgb):
                 'faces and textures must agree on [bs, nf]; got faces '
                 f'{tuple(faces.shape[:2])} vs textures '
                 f'{tuple(textures.shape[:2])}')
+
+
+class _ValueOfGradTo(torch.autograd.Function):
+    """Returns ``a`` exactly and sends the whole output gradient to ``b``:
+    the approximate-AA mode grafts the 2x-supersampled VALUE onto the 1x
+    render's GRADIENT (JAX api.py:91-111)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        return a
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
 
 
 def _avg_pool_2x2(x):
@@ -143,19 +158,32 @@ def rasterize_rgbad(
       faces: ``[bs, nf, 3, 3]`` NDC face vertex coords.
       textures: ``[bs, nf, ts, ts, ts, 3]`` per-face texture cubes
         (required when return_rgb).
-      anti_aliasing: render at 2x and average-pool down.  The JAX package's
-        ``'approx'`` mode renders the same values as ``True`` and differs
-        only in its gradient, so in this forward-only port it is ``True``.
+      anti_aliasing: render at 2x and average-pool down.  ``'approx'``
+        returns the values of ``True`` (the same 2x render, run without
+        gradient) with the gradient of a 1x render (``False``), so the
+        backward runs at a quarter of the pixels (JAX api.py:197-212).
 
     Returns dict(rgb=[bs,3,H,W], alpha=[bs,H,W], depth=[bs,H,W]) with None
     for unrequested channels.
     """
     faces, textures = _prepare(faces, textures, return_rgb)
     background = _background_array(background_color, faces.device)
+    common = (near, far, eps, return_rgb, return_alpha, return_depth)
+    if anti_aliasing == 'approx':
+        with torch.no_grad():
+            val = _render_pass(faces, textures, background, image_size * 2,
+                               True, *common)
+        if not (torch.is_grad_enabled()
+                and (faces.requires_grad or textures.requires_grad
+                     or background.requires_grad)):
+            return val
+        grad = _render_pass(faces, textures, background, image_size, False,
+                            *common)
+        return {k: None if val[k] is None
+                else _ValueOfGradTo.apply(val[k], grad[k]) for k in val}
     render_size = image_size * 2 if anti_aliasing else image_size
     return _render_pass(faces, textures, background, render_size,
-                        bool(anti_aliasing), near, far, eps, return_rgb,
-                        return_alpha, return_depth)
+                        bool(anti_aliasing), *common)
 
 
 def rasterize(

@@ -1,0 +1,302 @@
+"""The backward's CUDA kernels and their plain versions.
+
+Three hand-written kernels carry the rasterizer's approximate backward on
+the card:
+
+  * ``insweep`` (``csrc/backward_sweeps.cu``, replaces the TPU kernel
+    ``backward_pallas._kernel``): the K5 in-sweep, ``[bs, 12, is, is]``;
+  * ``outsweep`` (same source, replaces ``backward_pallas.
+    _outsweep_kernel``): the K5 out-sweep, ``[bs, 12, is, is]``, written or
+    added to the in-sweep's channels;
+  * ``face_reduce`` (``csrc/face_reduce.cu``, replaces ``backward_pallas.
+    _csr_kernel`` and its segment_sum): per-face sums of the fused
+    per-pixel channel stack, K6 factors expanded to texture cells.
+
+Each wrapper sends a CPU tensor to its plain PyTorch version
+(``insweep_plain``, ``outsweep_plain``, ``face_reduce_plain``) and a CUDA
+tensor to its kernel, which it launches or raises; any other device raises.
+``LAUNCHES`` counts kernel launches per kernel, never plain-version calls.
+
+The sweeps read the forward's maps as the CUDA forward writes them: ``xy``
+``[bs, 6, is, is]`` (the winner's NDC x0 y0 x1 y1 x2 y2), ``face_index_map``
+``[bs, is, is]`` int32, and value/gradient planes ``rgb``, ``grad_rgb``
+``[bs, 3, is, is]`` (the *composited* rgb) and ``grad_alpha``
+``[bs, is, is]``.  Alpha is the coverage of ``face_index_map``.  Which terms
+enter follows ``settings.return_rgb`` / ``return_alpha``.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from neural_renderer_torch import _build
+from neural_renderer_torch.rasterize import backward as bwd
+from neural_renderer_torch.rasterize import texture as tex
+
+# Kernel launches since import (or since a caller reset them), per kernel.
+LAUNCHES = {'insweep': 0, 'outsweep': 0, 'face_reduce': 0}
+
+
+@functools.cache
+def _sweeps():
+    """The sweep kernels' library, built at first use."""
+    lib = _build.load('backward_sweeps')
+    ptr, i32, f32, i64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_longlong)
+    common = [ptr, ptr, ptr, ptr, ptr, i32, i32, f32, ptr, i64]
+    lib.nr_insweep.argtypes = common + [ptr]
+    lib.nr_insweep.restype = i32
+    lib.nr_outsweep.argtypes = common + [i32, ptr]
+    lib.nr_outsweep.restype = i32
+    lib.nr_error_string.argtypes = [i32]
+    lib.nr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _reduce():
+    """The face-reduction kernel's library, built at first use."""
+    lib = _build.load('face_reduce')
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.nr_face_reduce.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                                   ptr, ptr]
+    lib.nr_face_reduce.restype = i32
+    lib.nr_error_string.argtypes = [i32]
+    lib.nr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _route(t):
+    """True for a CUDA tensor (run the kernel), False for a CPU tensor (run
+    the plain version); any other device raises."""
+    if t.device.type == 'cpu':
+        return False
+    if t.device.type != 'cuda':
+        raise ValueError(f'no backward kernel for device {t.device}')
+    return True
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(lib, rc, name):
+    if rc != 0:
+        raise RuntimeError(f'{name} kernel launch failed: '
+                           + lib.nr_error_string(rc).decode())
+
+
+def _check_sweep_inputs(settings, xy, face_index_map, rgb, grad_rgb,
+                        grad_alpha):
+    bs, is_ = face_index_map.shape[0], settings.image_size
+    want = {'xy': (xy, (bs, 6, is_, is_), torch.float32),
+            'face_index_map': (face_index_map, (bs, is_, is_), torch.int32)}
+    if settings.return_rgb:
+        want['rgb'] = (rgb, (bs, 3, is_, is_), torch.float32)
+        want['grad_rgb'] = (grad_rgb, (bs, 3, is_, is_), torch.float32)
+    if settings.return_alpha:
+        want['grad_alpha'] = (grad_alpha, (bs, is_, is_), torch.float32)
+    if not (settings.return_rgb or settings.return_alpha):
+        raise ValueError('the K5 sweeps need rgb or alpha')
+    for name, (t, shape, dtype) in want.items():
+        if (t is None or tuple(t.shape) != shape or t.dtype != dtype
+                or t.device != xy.device):
+            raise ValueError(
+                f'{name} must be {dtype} {shape} on {xy.device}; got '
+                + ('None' if t is None else
+                   f'{t.dtype} {tuple(t.shape)} on {t.device}'))
+
+
+def _check_out(out, bs, is_):
+    """A [bs, 12, is, is] float32 view whose batch rows may lie apart
+    (a channel slice of a larger stack) but whose planes are dense."""
+    if (out.dtype != torch.float32 or tuple(out.shape) != (bs, 12, is_, is_)
+            or out.stride()[1:] != (is_ * is_, is_, 1)):
+        raise ValueError('out must be a float32 [bs, 12, is, is] view with '
+                         f'dense planes; got {out.dtype} {tuple(out.shape)} '
+                         f'strides {out.stride()}')
+
+
+def _sweep_args(settings, xy, face_index_map, rgb, grad_rgb, grad_alpha):
+    """Contiguous kernel operands (None for the terms not drawn)."""
+    rgb_on = settings.return_rgb
+    alpha_on = settings.return_alpha
+    return (xy.contiguous(), face_index_map.contiguous(),
+            rgb.contiguous() if rgb_on else None,
+            grad_rgb.contiguous() if rgb_on else None,
+            grad_alpha.contiguous() if alpha_on else None)
+
+
+def _plain_maps(settings, xy, face_index_map):
+    ppx, ppy = bwd.pixel_coords(xy, settings.image_size)
+    covered = face_index_map >= 0
+    alpha = covered.to(torch.float32) if settings.return_alpha else None
+    return ppx, ppy, covered, alpha
+
+
+def insweep_plain(settings, xy, face_index_map, rgb=None, grad_rgb=None,
+                  grad_alpha=None):
+    """The plain PyTorch version of ``insweep``."""
+    ppx, ppy, covered, alpha = _plain_maps(settings, xy, face_index_map)
+    return bwd.insweep_channels(settings, ppx, ppy, covered, rgb, grad_rgb,
+                                alpha, grad_alpha)
+
+
+def outsweep_plain(settings, xy, face_index_map, rgb=None, grad_rgb=None,
+                   grad_alpha=None):
+    """The plain PyTorch version of ``outsweep`` (row-chunked dense
+    sweep, O(bs * is^3))."""
+    ppx, ppy, covered, alpha = _plain_maps(settings, xy, face_index_map)
+    return bwd.outsweep_channels(settings, ppx, ppy, covered, rgb, grad_rgb,
+                                 alpha, grad_alpha)
+
+
+def insweep(settings, xy, face_index_map, rgb=None, grad_rgb=None,
+            grad_alpha=None, out=None):
+    """K5 in-sweep channels ``[bs, 12, is, is]`` (written into ``out``
+    when given: a ``[bs, 12, is, is]`` view with dense planes)."""
+    _check_sweep_inputs(settings, xy, face_index_map, rgb, grad_rgb,
+                        grad_alpha)
+    bs, is_ = face_index_map.shape[0], settings.image_size
+    if out is not None:
+        _check_out(out, bs, is_)
+    if not _route(xy):
+        res = insweep_plain(settings, xy, face_index_map, rgb, grad_rgb,
+                            grad_alpha)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty((bs, 12, is_, is_), dtype=torch.float32,
+                          device=xy.device)
+    lib = _sweeps()
+    args = _sweep_args(settings, xy, face_index_map, rgb, grad_rgb,
+                       grad_alpha)
+    with torch.cuda.device(xy.device):
+        rc = lib.nr_insweep(*map(_ptr, args), bs, is_, settings.eps,
+                            out.data_ptr(), out.stride(0), _stream(xy))
+    _raise_on(lib, rc, 'insweep')
+    LAUNCHES['insweep'] += 1
+    return out
+
+
+def outsweep(settings, xy, face_index_map, rgb=None, grad_rgb=None,
+             grad_alpha=None, out=None, accumulate=False):
+    """K5 out-sweep channels ``[bs, 12, is, is]``.  With ``out`` (a
+    ``[bs, 12, is, is]`` view with dense planes) the result is written
+    there, or with ``accumulate`` added to it (``out + sweep``, as the JAX
+    package adds the out-sweep to the in-sweep)."""
+    _check_sweep_inputs(settings, xy, face_index_map, rgb, grad_rgb,
+                        grad_alpha)
+    bs, is_ = face_index_map.shape[0], settings.image_size
+    if out is not None:
+        _check_out(out, bs, is_)
+    elif accumulate:
+        raise ValueError('accumulate needs out')
+    if not _route(xy):
+        res = outsweep_plain(settings, xy, face_index_map, rgb, grad_rgb,
+                             grad_alpha)
+        if out is None:
+            return res
+        return out.add_(res) if accumulate else out.copy_(res)
+    if out is None:
+        out = torch.empty((bs, 12, is_, is_), dtype=torch.float32,
+                          device=xy.device)
+    lib = _sweeps()
+    args = _sweep_args(settings, xy, face_index_map, rgb, grad_rgb,
+                       grad_alpha)
+    with torch.cuda.device(xy.device):
+        rc = lib.nr_outsweep(*map(_ptr, args), bs, is_, settings.eps,
+                             out.data_ptr(), out.stride(0), int(accumulate),
+                             _stream(xy))
+    _raise_on(lib, rc, 'outsweep')
+    LAUNCHES['outsweep'] += 1
+    return out
+
+
+def _expanded_width(C, ts):
+    """Output columns of a C-channel stack whose last ts^2 + ts + 3
+    channels are K6 factors (none when ts is 0)."""
+    if not ts:
+        return C
+    naux = ts * ts + ts + 3
+    if C < naux:
+        raise ValueError(f'a stack of {C} channels cannot carry the {naux} '
+                         f'K6 factor channels of ts={ts}')
+    return C - naux + ts ** 3 * 3
+
+
+def face_reduce_plain(stack, face_index_map, nf, ts=0):
+    """The plain PyTorch version of ``face_reduce``: expand the K6 factors
+    (``texture.texture_channels_cells``), then ``index_add_`` the pixel rows
+    over ``bs * nf + 1`` segments and drop the overflow row."""
+    bs, C = stack.shape[:2]
+    c_out = _expanded_width(C, ts)
+    if ts:
+        naux = ts * ts + ts + 3
+        stack = torch.cat([stack[:, :C - naux],
+                           tex.texture_channels_cells(stack[:, C - naux:],
+                                                      ts)], dim=1)
+    rows = stack.permute(0, 2, 3, 1).reshape(-1, c_out)
+    seg = bwd.face_segments(face_index_map, nf).reshape(-1)
+    out = torch.zeros((bs * nf + 1, c_out), dtype=torch.float32,
+                      device=stack.device)
+    return out.index_add_(0, seg, rows)[:-1]
+
+
+def face_runs(face_index_map, nf):
+    """Every face's pixels as one run: (order, start), both int32.
+
+    ``order`` lists the flat pixel indices of ``face_index_map``
+    ``[bs, is, is]`` sorted by segment (``backward.face_segments``; a stable
+    sort keeps each run in ascending pixel order, uncovered pixels last) and
+    face ``s`` of ``[bs * nf]`` owns ``order[start[s]:start[s + 1]]``.  The
+    run starts come from a binary search of the sorted segments, not a
+    histogram, whose uncovered bin would take most pixels' atomic adds."""
+    bs = face_index_map.shape[0]
+    seg = bwd.face_segments(face_index_map, nf).reshape(-1).to(torch.int32)
+    sorted_seg, order = torch.sort(seg, stable=True)
+    start = torch.searchsorted(
+        sorted_seg, torch.arange(bs * nf + 1, dtype=torch.int32,
+                                 device=seg.device), out_int32=True)
+    return order.to(torch.int32), start
+
+
+def face_reduce(stack, face_index_map, nf, ts=0):
+    """Per-face sums ``[bs * nf, C_out]`` of the channel stack
+    ``[bs, C, is, is]`` over the pixels each face won.  With ``ts`` > 0 the
+    last ``ts^2 + ts + 3`` channels are K6 factors
+    (``texture.texture_cell_factors``), expanded to ``ts^3 * 3`` cell
+    columns in cube order, so ``C_out = C - (ts^2 + ts + 3) + ts^3 * 3``.
+    Faces that win no pixel get exact zeros; uncovered pixels are skipped.
+    Deterministic on the card: no float atomics."""
+    bs, C, is_ = stack.shape[0], stack.shape[1], stack.shape[2]
+    if (stack.dtype != torch.float32 or stack.ndim != 4
+            or stack.shape[3] != is_
+            or tuple(face_index_map.shape) != (bs, is_, is_)
+            or face_index_map.dtype != torch.int32):
+        raise ValueError('stack must be float32 [bs, C, is, is] and '
+                         'face_index_map int32 [bs, is, is]; got '
+                         f'{stack.dtype} {tuple(stack.shape)} and '
+                         f'{face_index_map.dtype} '
+                         f'{tuple(face_index_map.shape)}')
+    c_out = _expanded_width(C, ts)
+    if not _route(stack):
+        return face_reduce_plain(stack, face_index_map, nf, ts)
+    if bs * is_ * is_ >= 2 ** 31 or bs * nf >= 2 ** 31:
+        raise ValueError('face_reduce indexes pixels and faces with int32')
+    lib = _reduce()
+    stack = stack.contiguous()
+    order, start = face_runs(face_index_map, nf)
+    out = torch.empty((bs * nf, c_out), dtype=torch.float32,
+                      device=stack.device)
+    with torch.cuda.device(stack.device):
+        rc = lib.nr_face_reduce(stack.data_ptr(), order.data_ptr(),
+                                start.data_ptr(), bs, nf, is_, C, ts,
+                                out.data_ptr(), _stream(stack))
+    _raise_on(lib, rc, 'face_reduce')
+    LAUNCHES['face_reduce'] += 1
+    return out

@@ -233,7 +233,7 @@ def forward_shaded_plain(settings, faces, textures=None):
             0, 3, 1, 2).contiguous(),
         z=face_w0[..., 2].permute(0, 3, 1, 2).contiguous())
     if textures is not None:
-        rgb = tex.sample_textures(settings, textures, fim, face_w,
+        rgb = tex.sample_textures(settings, textures, fim, face_w[..., 2],
                                   weight_map, depth_map)
         out['rgb'] = rgb.permute(0, 3, 1, 2).contiguous()
     return out

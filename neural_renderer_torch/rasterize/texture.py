@@ -1,10 +1,17 @@
-"""Per-face texture-cube sampling (K4), forward only.
+"""Per-face texture-cube sampling (K4) and its exact gradient (K6).
 
 The reference samples each covered pixel's color by perspective-correcting
 its barycentric weights into the face's ``ts^3`` texture cube and blending
 the 8 surrounding corners trilinearly (``rasterize.py:361-438``).  This is
 the plain PyTorch version; the CUDA forward kernel (``forward_cuda``) fuses
 the same arithmetic for ``ts <= 4``.
+
+The gradient (reference ``rasterize.py:750-792``, an atomicAdd scatter) is
+recomputed from the saved maps.  For ``ts <= 4`` the backward carries
+per-pixel *factor* channels (``texture_cell_factors``) and the per-face
+reduction kernel expands them to the ``ts^3 * 3`` cell columns
+(``texture_channels_cells`` is the plain expansion); larger cubes take the
+8-corner scatter ``grad_textures``, as the JAX package does.
 
 Deliberate fix vs the reference: K4 reads the winning face's vertex depths
 from batch 0 for every batch element (``rasterize.py:389`` indexes
@@ -16,12 +23,11 @@ textures).  We read ``faces[bn, face_index]`` correctly.
 import torch
 
 
-def _texture_index_float(settings, face_w, weight_map, depth_map,
+def _texture_index_float(settings, z, weight_map, depth_map,
                          texture_size):
     """Perspective-corrected texture coords tif [bs,is,is,3]
-    (rasterize.py:398-404).  face_w: the winner's gathered vertex rows."""
+    (rasterize.py:398-404).  z: the winner's vertex depths [bs,is,is,3]."""
     ts = texture_size
-    z = face_w[..., 2]                  # winner's vertex depths [bs,is,is,3]
     tif = weight_map * (ts - 1) * (depth_map[..., None] / z)
     tif = torch.clamp(tif, min=0.0)
     tif = torch.clamp(tif, max=ts - 1 - settings.eps)
@@ -44,7 +50,7 @@ def _corner(tif, lo, pn, ts):
     return w, isc
 
 
-def sample_textures(settings, textures, face_index_map, face_w, weight_map,
+def sample_textures(settings, textures, face_index_map, z, weight_map,
                     depth_map):
     """Forward texture sampling (K4): returns rgb_map [bs, is, is, 3].
 
@@ -55,7 +61,7 @@ def sample_textures(settings, textures, face_index_map, face_w, weight_map,
     covered = face_index_map >= 0
     fidx = face_index_map.clamp(0, nf - 1).long()
 
-    tif = _texture_index_float(settings, face_w, weight_map, depth_map, ts)
+    tif = _texture_index_float(settings, z, weight_map, depth_map, ts)
     # trunc == floor for tif >= 0; covered pixels have lo <= ts-2 already
     # (tif <= ts-1-eps), the clamp only keeps uncovered garbage in bounds
     lo = tif.to(torch.int64).clamp(0, ts - 2)
@@ -70,3 +76,80 @@ def sample_textures(settings, textures, face_index_map, face_w, weight_map,
         texel = torch.gather(tex_flat, 1, gidx).reshape(bs, is_, is_, 3)
         rgb = rgb + w[..., None] * texel
     return torch.where(covered[..., None], rgb, torch.zeros_like(rgb))
+
+
+def _axis_hats(settings, z, weight_map, depth_map, ts):
+    """Per-axis trilinear hat vectors: for k = 0, 1, 2 a list of ts maps
+    ``[bs, is, is]``, nonzero only at lo_k (``1 - frac``) and lo_k + 1
+    (``frac``).  Uncovered pixels hold NaN (their tif is ``0 * far / 0``)."""
+    tif = _texture_index_float(settings, z, weight_map, depth_map, ts)
+    lo = tif.to(torch.int32)            # trunc == floor for tif >= 0
+    frac = tif - lo.to(torch.float32)
+    zero = torch.zeros_like(frac[..., 0])
+
+    def axis_vec(k):
+        lk, fk = lo[..., k], frac[..., k]
+        return [torch.where(lk == j, 1.0 - fk, zero)
+                + torch.where(lk + 1 == j, fk, zero) for j in range(ts)]
+
+    return axis_vec(0), axis_vec(1), axis_vec(2)
+
+
+def texture_cell_factors(settings, face_index_map, z, weight_map,
+                         depth_map, grad_rgb, ts):
+    """K6 per-pixel factor channels ``[bs, ts^2 + ts + 3, is, is]``: the ts^2
+    paired axis-0/1 hat products ``p01``, the ts axis-2 hats ``a2`` and the
+    grad_rgb channels (``grad_rgb`` is ``[bs, 3, is, is]``).
+
+    Cell ``(i01 * ts + c2) * 3 + c`` of a pixel's gradient row is
+    ``(p01[i01] * a2[c2]) * g[c]`` (``texture_channels_cells``).  Every
+    channel is zeroed at uncovered pixels, where tif is NaN."""
+    covered = face_index_map >= 0
+    a0, a1, a2 = _axis_hats(settings, z, weight_map, depth_map, ts)
+    zero = torch.zeros_like(a2[0])
+    chans = [x0 * x1 for x0 in a0 for x1 in a1] + a2
+    chans += [grad_rgb[:, c] for c in range(3)]
+    return torch.stack([torch.where(covered, x, zero) for x in chans], dim=1)
+
+
+def texture_channels_cells(factors, ts):
+    """Expand factor channels ``[bs, ts^2 + ts + 3, is, is]`` into the
+    cell-resolved rows ``[bs, ts^3 * 3, is, is]``: channel
+    ``(i01 * ts + c2) * 3 + c`` holds ``(p01[i01] * a2[c2]) * g[c]``, the
+    pixel's trilinear weight of cube cell ``i01 * ts + c2`` times
+    ``grad_rgb_c`` (the JAX package's ``texture_channels_cells``, and at
+    ts 2 its ``texture_channels_ts2``, in the same multiply order)."""
+    n01 = ts * ts
+    p01 = factors[:, :n01]
+    a2 = factors[:, n01:n01 + ts]
+    g = factors[:, n01 + ts:]
+    w = p01[:, :, None] * a2[:, None, :]             # [bs, n01, ts, is, is]
+    cells = w[:, :, :, None] * g[:, None, None]      # [.., ts, 3, is, is]
+    return cells.reshape(factors.shape[0], n01 * ts * 3, *factors.shape[2:])
+
+
+def grad_textures(settings, face_index_map, z, weight_map, depth_map,
+                  grad_rgb_map, texture_shape):
+    """K6 by the 8-corner scatter, for any ts (the backward uses it for
+    ts > 4): ``grad[b, f, isc] += w_pn * grad_rgb[pixel]`` for the 8 corners
+    of every covered pixel, as ``index_add_`` over ``bs * nf * ts^3`` cells.
+    grad_rgb_map: ``[bs, is, is, 3]``.  Returns ``texture_shape``."""
+    bs, nf, ts = texture_shape[0], texture_shape[1], texture_shape[2]
+    covered = face_index_map >= 0
+    fidx = face_index_map.clamp(0, nf - 1).long()
+    n_cells = ts * ts * ts
+    tif = _texture_index_float(settings, z, weight_map, depth_map, ts)
+    lo = tif.to(torch.int64)
+    boffs = (torch.arange(bs, device=fidx.device) * (nf * n_cells))[
+        :, None, None]
+    flat = torch.zeros((bs * nf * n_cells, 3), dtype=torch.float32,
+                       device=fidx.device)
+    zero = torch.zeros_like(grad_rgb_map)
+    for pn in range(8):
+        w, isc = _corner(tif, lo, pn, ts)
+        seg = torch.where(covered, fidx * n_cells + isc + boffs,
+                          torch.zeros_like(fidx))
+        contrib = torch.where(covered[..., None], w[..., None] * grad_rgb_map,
+                              zero)
+        flat.index_add_(0, seg.reshape(-1), contrib.reshape(-1, 3))
+    return flat.reshape(texture_shape)

@@ -27,8 +27,8 @@ class Renderer(object):
     def __init__(self):
         # rendering
         self.image_size = 256
-        # True = the reference's 2x supersample + mean-pool; False = none.
-        # 'approx' (a gradient-only mode in the JAX package) renders as True.
+        # True = the reference's 2x supersample + mean-pool; False = none;
+        # 'approx' = the values of True with the gradient of a 1x render.
         self.anti_aliasing = True
         self.background_color = [0, 0, 0]
         self.fill_back = True

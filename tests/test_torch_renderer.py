@@ -7,8 +7,9 @@ anti-aliasing on and off, ts 2, 4 and 5: allclose at atol 1e-5 and coverage
 masks exactly equal.  The JAX methods run eagerly, op by op as the port does:
 under ``jax.jit`` XLA's CPU fusion rounds the barycentric products of sliver
 faces differently (ROADMAP Queue 3).  Also the Blender silhouette golden, the
-AA rgb fingerprint, ``renderer_from_jax``, input checks, background colours,
-and that a backward through ``rasterize_core`` raises.
+AA rgb fingerprint, ``renderer_from_jax``, input checks and background
+colours.  The backward is held against the JAX package in
+test_torch_backward.py and test_torch_train.py.
 """
 
 import os
@@ -20,8 +21,6 @@ import torch
 import neural_renderer_torch as nt
 import neural_renderer_tpu as nr
 import utils
-from neural_renderer_torch.rasterize.config import RasterizeSettings
-from neural_renderer_torch.rasterize.core import rasterize_core
 
 torch.set_num_threads(2)
 
@@ -216,16 +215,3 @@ def test_input_validation():
     with pytest.raises(ValueError, match='background_color'):
         nt.rasterize(good_f, good_t, image_size=16,
                      background_color=(1.0, 0.0))
-
-
-def test_backward_raises_not_implemented():
-    """The approximate backward is not ported: a gradient through
-    rasterize_core raises instead of returning zeros."""
-    rng = np.random.RandomState(5)
-    fc = torch.tensor(rng.uniform(-0.9, 0.9, (1, 8, 3, 3)).astype(np.float32)
-                      + np.array([0, 0, 2], np.float32), requires_grad=True)
-    tx = torch.ones((1, 8, 2, 2, 2, 3), requires_grad=True)
-    s = RasterizeSettings(image_size=16)
-    rgb, alpha, depth = rasterize_core(s, fc, tx, torch.zeros(3))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        (rgb.sum() + alpha.sum() + depth.sum()).backward()
