@@ -4,9 +4,9 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero; progress goes to stdout):
   1. the card: ``torch.cuda.is_available()``, name and power limit;
-  2. build the CUDA kernels from ``neural_renderer_torch/csrc`` (one nvcc
-     each, all started together) and print ptxas' register and
-     shared-memory report;
+  2. build the CUDA kernels from ``neural_renderer_torch/csrc`` (four
+     sources, five kernels; one nvcc each, all started together) and print
+     ptxas' register and shared-memory report;
   3. the forward kernel against its plain PyTorch version on the card,
      inputs from ``--seed``: random 64^2 scenes (no textures, ts 2/3/4) and
      the teapot at a 512^2 raster (bs 4 ts 2, the golden batch at ts 4, and
@@ -29,18 +29,39 @@ Phases (any failure exits non-zero; progress goes to stdout):
      with respect to vertices and textures, at batch 32, 256^2 AA, ts 2,
      one step per bench azimuth after one warm-up step, counting launches
      of every kernel (at least one per kernel per step);
-  8. a trainer: a ``Mesh`` of the teapot (ts 2) fitted by ``Adam`` for 10
-     steps at batch 32 (the 8 azimuths x 4), 256^2 AA, L2 against renders of
-     a shifted mesh; the loss must fall;
+  8. a trainer: a ``Mesh`` of the teapot (ts 2), built on the card by
+     ``Mesh.from_obj`` itself, fitted by ``Adam`` for 10 steps at batch 32
+     (the 8 azimuths x 4), 256^2 AA, L2 against renders of a shifted mesh;
+     the loss must fall;
   9. gradient anchors: the four hard-coded cases of tests/test_rasterize.py
      and tests/test_rasterize_silhouettes.py at rtol 1e-2, and the teapot
      silhouette gradient against tests/data/teapot_grad_fingerprint.npz
      (|err| <= 1e-3 x max |grad|; the plain version on the CPU is within
-     2.43e-4 x max).
+     2.43e-4 x max);
+ 10. the index-and-depth kernel against its plain version on the card:
+     random 64^2 scenes (plain, with coincident duplicated faces, with
+     degenerate faces), the teapot at 512^2 bs 4, the golden batch and the
+     main shape (bs 32, 512^2); 0 index mismatches, a bit-equal depth plane
+     and bitwise-equal repeat runs; timed at the main shape;
+ 11. the tune path at full width, the JAX bench's tuned workload:
+     ``tune`` on the teapot at batch 32, 256^2 AA, ts 2, over the 8 bench
+     azimuths with ``margin=1.0`` (at least one index-kernel launch per
+     azimuth); its dict must cover ``measure_scene`` of every azimuth;
+     ``measure=True`` must return {} and leave ``perf_overrides`` as it was;
+ 12. a large mesh: the 163,840-face icosphere (subdiv 6, fill_back), the
+     index kernel against its plain version at bs 1 on 512^2 (0
+     mismatches), then a ``render_silhouettes`` training step at batch 4,
+     256^2 AA, over the 8 azimuths: every kernel launches, the vertex
+     gradient is finite and non-zero, images/s printed.
 
 The last stdout line is the JSON device record; the line before it lists each
-kernel with its launches on the main path (phase 7), its worst error against
-the plain version and both times.
+of the five kernels with its launches on its path (phase 7 for the first four,
+phase 11 for the index kernel), its worst error against the plain version,
+its time and the plain version's, its bound (the larger of the bytes it must
+move over the card's memory rate and its operations over the f32 rate, from
+this run's inputs) and the library side's time where PyTorch has a call for
+the function's core: for the per-face reduction, its K6 expansion, the
+covered rows' gather and one ``index_add_``, from the kernel's own inputs.
 """
 
 import argparse
@@ -49,13 +70,16 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 import neural_renderer_torch as nt
 from neural_renderer_torch import _build
+from neural_renderer_torch.rasterize import backward as bwd
 from neural_renderer_torch.rasterize import backward_cuda, core, forward_cuda
+from neural_renderer_torch.rasterize import texture as tex
 from neural_renderer_torch.rasterize.config import RasterizeSettings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -65,7 +89,21 @@ OUT_SIZE = 256                 # the main path's output; its raster is 2x
 RASTER = 2 * OUT_SIZE
 AZIMUTHS = [float(a) for a in range(0, 360, 45)]
 DISTANCE, ELEVATION = 2.732, 30.0
-KERNELS = ('forward_shaded', 'backward_sweeps', 'face_reduce')
+KERNELS = ('forward_shaded', 'forward_index', 'backward_sweeps',
+           'face_reduce')
+# the kernels a training step launches (the index kernel serves tune)
+TRAINING_KERNELS = ('forward_shaded', 'insweep', 'outsweep', 'face_reduce')
+
+# the card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
+# device memory bytes/s and f32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations the z test needs per (pixel, binned face) pair at the
+# least: three edge tests of two differences, two products and a compare
+PAIR_OPS = 15
+# per out-sweep position at the least: the rgb value difference times the
+# gradient, summed over 3 channels (3 sub, 3 mul, 2 add)
+SWEEP_POS_OPS = 8
 
 # kernel vs plain: the same separately rounded f32 operations in the same
 # order, except that sums may be taken in another order
@@ -107,14 +145,66 @@ def _teapot():
 
 
 def _reset_launches():
-    forward_cuda.LAUNCHES = 0
-    for k in backward_cuda.LAUNCHES:
-        backward_cuda.LAUNCHES[k] = 0
+    for counts in (forward_cuda.LAUNCHES, backward_cuda.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _launches():
-    return dict(forward_shaded=forward_cuda.LAUNCHES,
-                **backward_cuda.LAUNCHES)
+    return dict(**forward_cuda.LAUNCHES, **backward_cuda.LAUNCHES)
+
+
+def _bound(nbytes, ops):
+    """(least ms, what bounds it): the larger of the bytes over the memory
+    rate and the f32 operations over the f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def _binned_pairs(settings, faces, tile):
+    """(pixel, binned face) pairs of the forward kernels: each tile's list
+    length times its pixels inside the image."""
+    start, _ = forward_cuda.bin_faces(settings, faces, tile)
+    is_ = settings.image_size
+    nt_ = -(-is_ // tile)
+    lengths = (start[1:] - start[:-1]).reshape(-1, nt_, nt_).long()
+    edge = torch.full((nt_,), tile, dtype=torch.int64, device=faces.device)
+    edge[-1] = is_ - tile * (nt_ - 1)
+    return int((lengths * edge[:, None] * edge[None, :]).sum())
+
+
+def _icosphere(subdiv):
+    """Subdivided icosahedron on a sphere of radius 0.9 (the JAX bench's
+    large-mesh scene, bench.py:93-122: subdiv 6 -> 81,920 faces; the
+    Renderer's fill_back doubles that)."""
+    t = (1 + 5 ** 0.5) / 2
+    v = np.array([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+                  [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+                  [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]],
+                 np.float64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10],
+                  [0, 10, 11], [1, 5, 9], [5, 11, 4], [11, 10, 2],
+                  [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2], [3, 2, 6],
+                  [3, 6, 8], [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10],
+                  [8, 6, 7], [9, 8, 1]], np.int64)
+    for _ in range(subdiv):
+        verts, edges, nf = list(v), {}, []
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in edges:
+                m = v[a] + v[b]
+                edges[key] = len(verts)
+                verts.append(m / np.linalg.norm(m))
+            return edges[key]
+
+        for (a, b, c) in f:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            nf += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        v, f = np.array(verts), np.array(nf)
+    return (v * 0.9).astype(np.float32), f.astype(np.int32)
 
 
 def _raster_inputs(vertices, faces, textures, eyes, image_size, dev):
@@ -160,6 +250,29 @@ def _compare(name, settings, faces, textures):
          f'(covered {covered}), max abs err {errs}')
     _require(mism == 0, f'{name}: {mism} face_index_map mismatches')
     return worst
+
+
+def _compare_index(name, settings, faces):
+    """Index kernel vs plain on one scene: 0 index mismatches, a bit-equal
+    depth plane, bitwise-equal repeat runs; returns the depth's max abs
+    error (0.0)."""
+    got = forward_cuda.forward_face_index_map(settings, faces)
+    again = forward_cuda.forward_face_index_map(settings, faces)
+    want = forward_cuda.forward_face_index_map_plain(settings, faces)
+    torch.cuda.synchronize()
+    mism = int((got[0] != want[0]).sum())
+    covered = int((want[0] >= 0).sum())
+    err = float((got[1] - want[1]).abs().max())
+    _log(f'compare index {name}: face_index_map mismatches {mism} (covered '
+         f'{covered}), depth max abs err {err}, depth bit-equal '
+         f'{torch.equal(got[1], want[1])}')
+    _require(mism == 0, f'{name}: {mism} face_index_map mismatches')
+    _require(torch.equal(got[1], want[1]),
+             f'{name}: the depth plane differs from the plain version')
+    _require(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+             f'{name}: the index kernel\'s repeat run differs')
+    _require(covered > 0, f'{name}: nothing covered')
+    return err
 
 
 def _time_ms(fn, reps, warmup=1):
@@ -354,6 +467,7 @@ def main():
     t0 = time.time()
     built = _build.build_all(KERNELS)
     forward_cuda._kernel()
+    forward_cuda._index_kernel()
     backward_cuda._sweeps()
     backward_cuda._reduce()
     _log(f'build: {", ".join(p.name for p, _ in built.values())} in '
@@ -420,6 +534,18 @@ def main():
          f'{plain_ms:.3f} / {plain_ms_again:.3f} ms (kernel, plain, kernel, '
          f'plain); kernel alone (profiler) {_fmt_ms(kernel_only)}')
     times = {'forward_shaded': (ms, plain_ms)}
+    alone = {'forward_shaded': kernel_only}
+    library = {}
+    pairs32 = _binned_pairs(s512, fc32,
+                            forward_cuda._kernel().nr_forward_shaded_tile())
+    pixels32 = BATCH * RASTER * RASTER
+    # faces and texels read once; 17 words per pixel written
+    bounds = {'forward_shaded': _bound(
+        4 * (fc32.numel() + tx32.numel()) + 17 * 4 * pixels32,
+        PAIR_OPS * pairs32)}
+    _log(f'forward_shaded bound at bs {BATCH}, {RASTER}^2: {pairs32} binned '
+         f'(pixel, face) pairs; {bounds["forward_shaded"][0]:.4f} ms by '
+         f'{bounds["forward_shaded"][1]}')
 
     # ---- 4. the forward-only path ----
     v = torch.as_tensor(np.tile(vertices[None], (BATCH, 1, 1)), device=dev)
@@ -535,13 +661,63 @@ def main():
         p1 = _time_ms(plain_fn, reps=preps)
         k2 = _time_ms(kern, reps=reps)
         p2 = _time_ms(plain_fn, reps=preps)
-        alone = _kernel_device_ms(kern, 5, kname)
+        alone[name] = _kernel_device_ms(kern, 5, kname)
         times[name] = (k1, p1)
         _log(f'time at bs {BATCH}, {RASTER}^2, rgb, ts 2 ({stack.shape[1]} '
              f'stack channels) on {smi}: {name} {k1:.3f} / {k2:.3f} ms, '
              f'plain {p1:.3f} / {p2:.3f} ms (kernel, plain, kernel, plain); '
-             f'kernel alone (profiler) {_fmt_ms(alone)}')
-    del stack, maps, grads, sweep
+             f'kernel alone (profiler) {_fmt_ms(alone[name])}')
+
+    # the bounds at this shape: per-pixel inputs count where the function
+    # reads them (covered pixels), the face map and the outputs everywhere
+    cov = int((fim >= 0).sum())
+    channels = stack.shape[1]
+    sweep_bytes = 4 * pixels32 + 4 * (6 + 3 + 3) * cov + 4 * 12 * pixels32
+    walk = bwd.out_sweep_stats(s_rgb, fc32, fim)
+    bounds['insweep'] = _bound(sweep_bytes, 0)
+    bounds['outsweep'] = _bound(sweep_bytes,
+                                SWEEP_POS_OPS * walk['positions'])
+    reduced = backward_cuda.face_reduce(stack, fim, nf2, k6)
+    cols = reduced.shape[1]
+    bounds['face_reduce'] = _bound(
+        4 * pixels32 + 4 * channels * cov + 4 * BATCH * nf2 * cols,
+        channels * cov)
+    _log(f'backward bounds at bs {BATCH}, {RASTER}^2, rgb: {cov} covered '
+         f'pixels; out-sweep: {walk["active"]} active crossings sweeping '
+         f'{walk["positions"]} positions (out_sweep_stats, the most in one '
+         f'batch row and axis: {walk["out_crossings"]}); '
+         + ', '.join(f'{k} {bounds[k][0]:.4f} ms by {bounds[k][1]}'
+                     for k in ('insweep', 'outsweep', 'face_reduce')))
+
+    # the library side of face_reduce, from the kernel's own inputs (the
+    # channel-leading stack and the face map): the K6 factors expanded to
+    # their cell columns, the covered pixels' rows gathered pixel-major,
+    # then one index_add_ into per-face rows.  No single PyTorch call
+    # computes the function; index_add_ is its library core, timed alone
+    # on rows gathered beforehand as well
+    naux = k6 * k6 + k6 + 3
+
+    def library_reduce():
+        covered = (fim >= 0).reshape(-1)
+        seg = bwd.face_segments(fim, nf2).reshape(-1)[covered]
+        full = torch.cat([stack[:, :channels - naux],
+                          tex.texture_channels_cells(
+                              stack[:, channels - naux:], k6)], dim=1)
+        rows = full.permute(0, 2, 3, 1).reshape(-1, cols)[covered]
+        sums = torch.zeros((BATCH * nf2, cols), device=dev)
+        return sums.index_add_(0, seg, rows), seg, rows
+
+    sums, seg, rows = library_reduce()
+    err, _ = _sum_check('face_reduce library side', sums, reduced, 1)
+    library['face_reduce'] = _time_ms(library_reduce, reps=20, warmup=2)
+    add_ms = _time_ms(lambda: sums.index_add_(0, seg, rows), reps=20,
+                      warmup=2)
+    _log(f'library side of face_reduce from its inputs (K6 expansion, '
+         f'gather of the {cov} covered pixel rows x {cols} columns, '
+         f'index_add_) {library["face_reduce"]:.3f} ms, of which '
+         f'index_add_ alone {add_ms:.3f} ms, on {smi}; max |diff| vs the '
+         f'kernel {err:.3g}')
+    del stack, maps, grads, sweep, rows, seg, sums, reduced
 
     # ---- 7. the main path: training steps ----
     vg = v.clone().requires_grad_()
@@ -567,9 +743,9 @@ def main():
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = _launches()
-    for name, n in launches.items():
-        _require(n >= len(eyes), f'training path launched {name} {n} times '
-                 f'in {len(eyes)} steps')
+    for name in TRAINING_KERNELS:
+        _require(launches[name] >= len(eyes), f'training path launched '
+                 f'{name} {launches[name]} times in {len(eyes)} steps')
     for name, g in (('vertices', vg.grad), ('textures', tg.grad)):
         _require(g is not None and bool(torch.isfinite(g).all())
                  and float(g.abs().max()) > 0,
@@ -585,7 +761,10 @@ def main():
 
     # ---- 8. a trainer ----
     mesh = nt.Mesh.from_obj(os.path.join(DATA, 'teapot.obj'), texture_size=2,
-                            seed=args.seed).to(dev)
+                            seed=args.seed)
+    _require(all(p.device == dev for p in (mesh.vertices, mesh.textures,
+                                           mesh.faces)),
+             'Mesh.from_obj did not build its tensors on the card')
     fit = nt.Renderer()
     fit.image_size = OUT_SIZE
     fit.eye = np.array([e for e in eyes for _ in range(BATCH // 8)],
@@ -637,25 +816,174 @@ def main():
     _require(err <= FINGERPRINT_TOL * scale, 'grad fingerprint differs')
     _require(np.abs(g[[0, 1, 3]]).max() == 0, 'zero rows got gradient')
 
+    # ---- 10. index kernel vs plain ----
+    iworst = 0.0
+    for kind_ in ('random', 'duplicated', 'degenerate'):
+        fc = rng.uniform(-0.9, 0.9, (2, 40, 3, 3)).astype(np.float32)
+        fc[..., 2] = 1.0 + 0.3 * fc[..., 2]
+        if kind_ == 'duplicated':
+            fc[:, 20:] = fc[:, :20]             # ties go to the lower id
+        elif kind_ == 'degenerate':
+            fc[:, [3, 11, 17]] = 0.0
+            fc[:, [25, 31], 1] = fc[:, [25, 31], 0]
+        s = RasterizeSettings(image_size=64, eps=1e-3)
+        iworst = max(iworst, _compare_index(f'{kind_} 64^2 nf 40', s,
+                                            torch.as_tensor(fc, device=dev)))
+        if kind_ == 'duplicated':
+            got = forward_cuda.forward_face_index_map(
+                s, torch.as_tensor(fc, device=dev))[0]
+            _require(int(got.max()) < 20, 'a duplicated face beat its '
+                     'lower-id copy')
+    for name, fc in ((f'teapot {RASTER}^2 bs 4', fc4),
+                     (f'golden batch {RASTER}^2 bs 4', fcg),
+                     (f'teapot {RASTER}^2 bs {BATCH} (main shape)', fc32)):
+        iworst = max(iworst, _compare_index(name, s512, fc))
+
+    def index_kernel():
+        return forward_cuda.forward_face_index_map(s512, fc32)
+
+    def index_plain():
+        return forward_cuda.forward_face_index_map_plain(s512, fc32)
+
+    k1 = _time_ms(index_kernel, reps=20, warmup=3)
+    p1 = _time_ms(index_plain, reps=3)
+    k2 = _time_ms(index_kernel, reps=20)
+    p2 = _time_ms(index_plain, reps=3)
+    alone['forward_index'] = _kernel_device_ms(index_kernel, 10,
+                                               'index_kernel')
+    times['forward_index'] = (k1, p1)
+    # faces read once; index and depth written once per pixel
+    bounds['forward_index'] = _bound(4 * fc32.numel() + 2 * 4 * pixels32,
+                                     PAIR_OPS * pairs32)
+    _log(f'time at bs {BATCH}, {RASTER}^2, nf {nf2} on {smi}: '
+         f'forward_face_index_map {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / '
+         f'{p2:.3f} ms (kernel, plain, kernel, plain); kernel alone '
+         f'(profiler) {_fmt_ms(alone["forward_index"])}; bound '
+         f'{bounds["forward_index"][0]:.4f} ms by '
+         f'{bounds["forward_index"][1]} ({pairs32} binned pairs x '
+         f'{PAIR_OPS} ops = {_bound(0, PAIR_OPS * pairs32)[0]:.4f} ms)')
+
+    # ---- 11. the tune path ----
+    tuner = nt.Renderer()
+    tuner.image_size = OUT_SIZE
+    saved_eye = tuner.eye
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    overrides = nt.tune(tuner, v, f, eyes=eyes, margin=1.0, textures=t)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    tune_launches = _launches()
+    _log(f'tune: teapot batch {BATCH}, {OUT_SIZE}^2 AA, {len(eyes)} '
+         f'azimuths, margin 1.0: {overrides} in {elapsed:.4f} s on {smi}; '
+         f'launches {tune_launches}')
+    _require(tune_launches['forward_index'] >= len(eyes),
+             f'tune launched the index kernel '
+             f'{tune_launches["forward_index"]} times for {len(eyes)} eyes')
+    _require(tuner.eye is saved_eye and tuner.perf_overrides == overrides,
+             'tune did not restore the eye or record its dict')
+    s_tune = RasterizeSettings(image_size=RASTER, return_rgb=False,
+                               return_alpha=True, return_depth=False)
+    f_back = tuner._fill_back_faces(f.long())
+    for eye in eyes:
+        tuner.eye = eye
+        with torch.no_grad():
+            fc = nt.vertices_to_faces(tuner._transform(v), f_back)
+        m = nt.measure_scene(s_tune, fc)
+        covers = (m['binned_faces'] <= overrides['faces_per_tile_cap']
+                  and m['csr_rows'] <= overrides['grad_csr_rows']
+                  and m['out_offset'] < overrides['grad_offset_radius']
+                  and m['out_crossings'] <= overrides['grad_out_cap']
+                  and m['row_crossings'] <= overrides.get('grad_row_cap',
+                                                          256))
+        _require(covers, f'tune does not cover eye {eye}: {m}')
+    tuner.eye = saved_eye
+    _log(f'tune covers measure_scene of all {len(eyes)} azimuths '
+         f'(last: {m})')
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        declined = nt.tune(tuner, v, f, eyes=eyes, margin=1.0, textures=t,
+                           measure=True)
+    _require(declined == {} and tuner.perf_overrides == overrides
+             and tuner.eye is saved_eye and caught,
+             'tune(measure=True) did not decline with a warning')
+    _log(f'tune(measure=True): {declined}, perf_overrides untouched; '
+         f'warning: {caught[0].message}')
+
+    # ---- 12. a large mesh ----
+    lv, lf = _icosphere(6)
+    lvt = torch.as_tensor(lv[None], device=dev)
+    lft = torch.as_tensor(lf[None].astype(np.int64), device=dev)
+    large = nt.Renderer()
+    large.image_size = OUT_SIZE
+    large.eye = eyes[1]
+    with torch.no_grad():
+        fcl = nt.vertices_to_faces(large._transform(lvt),
+                                   large._fill_back_faces(lft))
+    nfl = fcl.shape[1]
+    iworst = max(iworst, _compare_index(
+        f'icosphere nf {nfl} {RASTER}^2 bs 1', s512, fcl))
+    del fcl
+    lbs = 4
+    lv4 = lvt.expand(lbs, -1, -1).clone().requires_grad_()
+    lf4 = lft.expand(lbs, -1, -1)
+
+    def large_step(eye):
+        large.eye = eye
+        lv4.grad = None
+        sil = large.render_silhouettes(lv4, lf4)
+        sil.sum().backward()
+        return sil
+
+    large_step(eyes[0])                           # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    for eye in eyes:
+        sil = large_step(eye)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    large_launches = _launches()
+    for name in TRAINING_KERNELS:
+        _require(large_launches[name] >= len(eyes),
+                 f'large-mesh step launched {name} '
+                 f'{large_launches[name]} times in {len(eyes)} steps')
+    g = lv4.grad
+    _require(g is not None and bool(torch.isfinite(g).all())
+             and float(g.abs().max()) > 0,
+             'large-mesh vertex gradient missing, non-finite or zero')
+    _require(float(sil.detach().amax()) == 1.0,
+             'an empty icosphere silhouette')
+    _log(f'large mesh (training): icosphere nf {nfl}, {len(eyes)} steps x '
+         f'batch {lbs}, {OUT_SIZE}^2 AA, render_silhouettes + '
+         f'sum().backward() w.r.t. vertices: {elapsed:.4f} s, '
+         f'{len(eyes) * lbs / elapsed:.2f} training images/s on {smi}; '
+         f'launches {large_launches}; max |grad| {float(g.abs().max()):.6g}')
+
     sources = {
         'forward_shaded': ('neural_renderer_torch/csrc/forward_shaded.cu',
                            'neural_renderer_tpu/rasterize/'
-                           'forward_pallas.py:636', worst),
+                           'forward_pallas.py:636', worst, launches),
+        'forward_index': ('neural_renderer_torch/csrc/forward_index.cu',
+                          'neural_renderer_tpu/rasterize/'
+                          'forward_pallas.py:353', iworst, tune_launches),
         'insweep': ('neural_renderer_torch/csrc/backward_sweeps.cu',
                     'neural_renderer_tpu/rasterize/backward_pallas.py:68',
-                    bworst['insweep']),
+                    bworst['insweep'], launches),
         'outsweep': ('neural_renderer_torch/csrc/backward_sweeps.cu',
                      'neural_renderer_tpu/rasterize/backward_pallas.py:276',
-                     bworst['outsweep']),
+                     bworst['outsweep'], launches),
         'face_reduce': ('neural_renderer_torch/csrc/face_reduce.cu',
                         'neural_renderer_tpu/rasterize/backward_pallas.py:867',
-                        bworst['face_reduce']),
+                        bworst['face_reduce'], launches),
     }
     _log(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
-        'launches': launches[name], 'max_abs_err': err_k,
+        'launches': counts[name], 'max_abs_err': err_k,
         'ms': times[name][0], 'plain_ms': times[name][1],
-    } for name, (src, rep, err_k) in sources.items()]}))
+        'bound_ms': bounds[name][0], 'bound_by': bounds[name][1],
+        'library_ms': library.get(name), 'kernel_alone_ms': alone[name],
+    } for name, (src, rep, err_k, counts) in sources.items()]}))
     _log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@
 Each kernel source under ``csrc/`` has a plain C interface.  At first use it
 is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library inside
 the package's ``_build/`` directory (listed in ``.gitignore``) and loaded
-with ``ctypes``.  The library's file name carries a hash of the source and
-the flags, so an edited source is rebuilt and a built one is reused.
+with ``ctypes``.  The library's file name carries a hash of the source, of
+the headers beside it (``csrc/*.cuh``) and of the flags, so an edited source
+or header is rebuilt and a built one is reused.
 
 Flags: ``--fmad=false`` keeps every multiply and add separately rounded, as
 PyTorch's elementwise kernels round them, so the kernels agree with their
@@ -41,7 +42,8 @@ def _nvcc():
 
 def _target(name):
     src = _CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b''.join(h.read_bytes() for h in sorted(_CSRC.glob('*.cuh')))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + ' '.join(_FLAGS).encode()).hexdigest()[:16]
     return src, _BUILD_DIR / f'lib{name}-{digest}.so'
 

@@ -8,6 +8,9 @@ arrays (numpy or anything ``np.asarray`` accepts) become tensors on the given
 device.  The JAX renderer's ``perf_overrides`` are TPU knobs with no
 counterpart here and are not copied.
 
+Every function here builds on the card unless ``device`` says otherwise
+(``config.resolve_device``); without a card the default raises.
+
 ``arrays_from_numpy`` turns mesh arrays (e.g. from ``load_obj``, or the JAX
 ``Mesh.get_batch`` after ``np.asarray``) into tensors, and ``mesh_from_jax``
 a JAX ``Mesh`` into this package's ``Mesh``.
@@ -16,6 +19,7 @@ a JAX ``Mesh`` into this package's ``Mesh``.
 import numpy as np
 import torch
 
+from neural_renderer_torch.rasterize.config import resolve_device
 from neural_renderer_torch.scene.mesh import Mesh
 from neural_renderer_torch.scene.renderer import Renderer
 
@@ -50,7 +54,9 @@ def _value(v, device):
 
 def renderer_from_jax(r, device=None):
     """A ``neural_renderer_torch.Renderer`` with every setting of the JAX
-    renderer ``r`` (duck-typed: any object with the same attributes)."""
+    renderer ``r`` (duck-typed: any object with the same attributes); its
+    array settings become tensors on ``device``."""
+    device = resolve_device(device)
     out = Renderer()
     for name in RENDERER_FIELDS:
         setattr(out, name, _value(getattr(r, name), device))
@@ -60,6 +66,7 @@ def renderer_from_jax(r, device=None):
 def arrays_from_numpy(vertices, faces, textures=None, device=None):
     """Mesh arrays -> (vertices f32, faces int64, textures f32 or None)
     tensors on ``device``."""
+    device = resolve_device(device)
     vertices = torch.tensor(np.asarray(vertices, np.float32), device=device)
     faces = torch.tensor(np.asarray(faces, np.int64), device=device)
     if textures is not None:
@@ -74,5 +81,5 @@ def mesh_from_jax(m, device=None):
     ``lr_vertices``, ``lr_textures``), on ``device``."""
     textures = None if m.textures is None else np.asarray(m.textures)
     return Mesh(np.asarray(m.vertices), textures, np.asarray(m.faces),
-                lr_vertices=m.lr_vertices,
-                lr_textures=m.lr_textures).to(device)
+                lr_vertices=m.lr_vertices, lr_textures=m.lr_textures,
+                device=device)

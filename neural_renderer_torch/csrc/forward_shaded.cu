@@ -18,47 +18,23 @@
 // therefore does nothing clever about compute: one thread per pixel writes
 // each output plane with coalesced stores.
 //
-// Design.  The host side (forward_cuda.py, plain PyTorch) bins every front
-// face by its conservative pixel bbox (+-1 pixel pad) into per-(batch,
-// tile) lists in ascending face order, in CSR form.  One block of
-// kTile x kTile threads renders one tile of one batch element, one thread
-// per pixel.  The block stages the tile's list in chunks of kThreads face
-// records in shared memory; every thread walks the chunk (all threads read
-// the same record: a shared-memory broadcast) and keeps a running
-// (zmin, winner) with a strict '<'.  Ascending order plus strict '<' is the
-// reference's sequential first-wins rule (rasterize.py:334).  A block loops
-// over any list length: there is no capacity limit.  The finalize reads the
-// winner's record and texels with direct global loads.  The TPU kernel's
-// one-hot MXU fetches, lane rolls, VMEM face table, scalar-prefetched
-// schedule and strip staging have no counterpart here.
+// Design.  One block per (batch, 16x16 tile) runs the binned z-buffer
+// loop of zbuffer.cuh (the tile's CSR face list staged in shared memory, a
+// running (zmin, winner) per pixel thread, no capacity); the finalize then
+// reads the winner's record and texels with direct global loads.  The TPU
+// kernel's one-hot MXU fetches, lane rolls, VMEM face table,
+// scalar-prefetched schedule and strip staging have no counterpart here.
 //
 // Numerics.  Every expression repeats the operand order of the plain
 // PyTorch version (forward_dense.py, texture.py), which follows the
-// reference.  Build with --fmad=false: a fused multiply-add in the edge
-// tests or in finv . (x, y, 1) would round differently from the separate
-// PyTorch operations and can flip a near-tie z test or an edge pixel.
-// Never build with --use_fast_math: 1/z and wsum/(...) must stay IEEE
-// divisions.  clip() lets NaN through, as torch.clamp does; degenerate
-// faces arrive with a zeroed face_inv (forward_cuda._face_records), so
-// their z is 0/0 = NaN and the z test rejects them.
+// reference; zbuffer.cuh says why the build uses --fmad=false and never
+// --use_fast_math.
 
 #include <cuda_runtime.h>
 
+#include "zbuffer.cuh"
+
 namespace {
-
-constexpr int kTile = 16;               // tile edge in pixels
-constexpr int kThreads = kTile * kTile;
-constexpr int kRec = 18;                // x0 y0 x1 y1 x2 y2, z0-2, finv[9]
-
-struct Face {
-  float x0, y0, x1, y1, x2, y2;
-  float f[9];                           // face_inv rows
-  float iz0, iz1, iz2;                  // 1 / z_k
-};
-
-__device__ __forceinline__ float clip01(float v) {
-  return v < 0.0f ? 0.0f : (v > 1.0f ? 1.0f : v);
-}
 
 // TS: texture cube size for fused shading (2..4), 0 for maps only.
 template <int TS>
@@ -84,45 +60,10 @@ shaded_kernel(const float* __restrict__ rec, const int* __restrict__ start,
   const float yp = (2.0f * fy + 1.0f - fis) / fis;
   const float* face_base = rec + (size_t)b * nf * kRec;
 
-  float zmin = __int_as_float(0x7f800000);   // +inf
-  int win = -1;
-  const int begin = start[tile];
-  const int end = start[tile + 1];
-  for (int c0 = begin; c0 < end; c0 += kThreads) {
-    const int n = min(kThreads, end - c0);
-    __syncthreads();                   // the previous chunk is consumed
-    if (tid < n) {
-      const int id = ids[c0 + tid];
-      const float* r = face_base + (size_t)id * kRec;
-      Face f;
-      f.x0 = r[0]; f.y0 = r[1]; f.x1 = r[2];
-      f.y1 = r[3]; f.x2 = r[4]; f.y2 = r[5];
-      f.iz0 = 1.0f / r[6]; f.iz1 = 1.0f / r[7]; f.iz2 = 1.0f / r[8];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) f.f[k] = r[9 + k];
-      s_face[tid] = f;
-      s_id[tid] = id;
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const Face& f = s_face[j];
-      // strict inside test, reference rasterize.py:310-312 operand order
-      const bool outside =
-          ((yp - f.y0) * (f.x1 - f.x0) < (xp - f.x0) * (f.y1 - f.y0)) |
-          ((yp - f.y1) * (f.x2 - f.x1) < (xp - f.x1) * (f.y2 - f.y1)) |
-          ((yp - f.y2) * (f.x0 - f.x2) < (xp - f.x2) * (f.y0 - f.y2));
-      if (outside) continue;
-      const float w0 = clip01(f.f[0] * fx + f.f[1] * fy + f.f[2]);
-      const float w1 = clip01(f.f[3] * fx + f.f[4] * fy + f.f[5]);
-      const float w2 = clip01(f.f[6] * fx + f.f[7] * fy + f.f[8]);
-      const float wsum = w0 + w1 + w2;
-      const float zp = wsum / (w0 * f.iz0 + w1 * f.iz1 + w2 * f.iz2);
-      if (zp > near && zp < far && zp < zmin) {
-        zmin = zp;
-        win = s_id[j];
-      }
-    }
-  }
+  float zmin;
+  const int win = zbuffer_tile(face_base, ids, start[tile], start[tile + 1],
+                               tid, fx, fy, xp, yp, near, far, s_face, s_id,
+                               zmin);
 
   if (xi >= is || yi >= is) return;
   const size_t plane = (size_t)is * is;

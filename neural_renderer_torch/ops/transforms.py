@@ -18,6 +18,7 @@ import math
 import torch
 
 from neural_renderer_torch.ops.cross import cross
+from neural_renderer_torch.rasterize.config import as_tensors
 
 # The reference normalizes with chainer.functions.normalize, which computes
 # x / (||x|| + eps) with eps = 1e-5.  We match it exactly.
@@ -132,13 +133,16 @@ def perspective(vertices, angle=30.0):
     return torch.stack([x, y, z], dim=2)
 
 
-def get_points_from_angles(distance, elevation, azimuth, degrees=True):
+def get_points_from_angles(distance, elevation, azimuth, degrees=True,
+                           device=None):
     """Spherical -> Cartesian eye position.
 
     Returns ``(d cosE sinA, d sinE, -d cosE cosA)``
     (reference ``get_points_from_angles.py:11-14``).  Python floats in, tuple
     of floats out (matching the reference's scalar branch); tensor or array
-    inputs get the differentiable tensor branch stacked as ``[..., 3]``.
+    inputs get the differentiable tensor branch stacked as ``[..., 3]``, on
+    the tensor inputs' device, else on ``device`` (the card by default,
+    ``config.as_tensors``).
     """
     if isinstance(distance, (float, int)) and isinstance(elevation, (float, int)) \
             and isinstance(azimuth, (float, int)):
@@ -150,9 +154,8 @@ def get_points_from_angles(distance, elevation, azimuth, degrees=True):
             distance * math.sin(elevation),
             -distance * math.cos(elevation) * math.cos(azimuth),
         )
-    distance = torch.as_tensor(distance, dtype=torch.float32)
-    elevation = torch.as_tensor(elevation, dtype=torch.float32)
-    azimuth = torch.as_tensor(azimuth, dtype=torch.float32)
+    distance, elevation, azimuth = as_tensors(
+        [distance, elevation, azimuth], torch.float32, device)
     if degrees:
         elevation = torch.deg2rad(elevation)
         azimuth = torch.deg2rad(azimuth)

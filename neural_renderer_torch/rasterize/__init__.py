@@ -1,14 +1,17 @@
-"""Z-buffered triangle rasterizer, forward only.
+"""Z-buffered triangle rasterizer and its approximate backward.
 
-  * ``forward_cuda.py`` — the shaded forward: per-face records and tile
-    binning in PyTorch, then one hand-written CUDA kernel
-    (``csrc/forward_shaded.cu``) for the z-buffer, winner attributes and K4
-    texture shading; on a CPU tensor its plain version;
-  * ``forward_dense.py`` — the dense argmin-z oracle (the plain version's
+  * ``forward_cuda.py`` — the forward: per-face records and tile binning in
+    PyTorch, then a hand-written CUDA kernel, ``csrc/forward_shaded.cu``
+    (z-buffer, winner attributes, K4 texture shading) or
+    ``csrc/forward_index.cu`` (face index and raw depth only); on a CPU
+    tensor their plain versions.  Also the JAX package's scene counters
+    (``binning_overflow``, ``chunks_needed``, ``csr_rows_needed``);
+  * ``forward_dense.py`` — the dense argmin-z oracle (the plain versions'
     core, counterpart of the JAX package's ``forward_xla.py``);
-  * ``texture.py`` — K4 texture sampling;
+  * ``texture.py`` — K4 texture sampling and the K6 texture gradient;
+  * ``backward.py`` / ``backward_cuda.py`` — the K5 sweeps, K7 depth
+    channels, the per-face reduction, and the out-sweep counters
+    (``out_sweep_stats``, ``count_out_crossings``, ``max_out_offset``);
   * ``core.py`` / ``api.py`` — background composite, anti-aliasing, flip,
-    and the reference's public entry points.
-
-The approximate backward (K5/K6/K7) is not ported yet.
+    the autograd function, and the reference's public entry points.
 """

@@ -18,16 +18,19 @@ from neural_renderer_torch.rasterize.config import (
     DEFAULT_IMAGE_SIZE,
     DEFAULT_NEAR,
     RasterizeSettings,
+    resolve_device,
 )
 from neural_renderer_torch.rasterize.core import rasterize_core
 
 
 def _as_tensor(x, dtype=torch.float32, device=None):
     """Tensor of ``dtype``; a tensor keeps its device unless one is given,
-    anything else (numpy array, list) lands on ``device`` (default CPU)."""
+    anything else (numpy array, list) lands on ``device`` (default: the
+    card, ``config.resolve_device``)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device or x.device, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    return torch.as_tensor(np.asarray(x), dtype=dtype,
+                           device=resolve_device(device))
 
 
 def _background_array(background_color, device):
@@ -228,7 +231,9 @@ class Rasterize:
                  return_rgb=False, return_alpha=False, return_depth=False):
         if not any((return_rgb, return_alpha, return_depth)):
             raise ValueError('nothing to draw')
-        self.background = _background_array(background_color, None)
+        # validated now, placed on the device of the faces of each call
+        _background_array(background_color, torch.device('cpu'))
+        self.background_color = background_color
         self.settings = RasterizeSettings(
             image_size=image_size, near=float(near), far=float(far),
             eps=float(eps), return_rgb=return_rgb,
@@ -238,7 +243,8 @@ class Rasterize:
     def __call__(self, faces, textures=None):
         faces, textures = _prepare(faces, textures, self.settings.return_rgb)
         rgb, alpha, depth = rasterize_core(
-            self.settings, faces, textures, self.background.to(faces.device))
+            self.settings, faces, textures,
+            _background_array(self.background_color, faces.device))
         return (rgb if self.settings.return_rgb else None,
                 alpha if self.settings.return_alpha else None,
                 depth if self.settings.return_depth else None)

@@ -31,7 +31,7 @@ and gradient maps ``rgb``/``grad_rgb`` ``[bs, 3, is, is]``,
 
 import torch
 
-from neural_renderer_torch.rasterize import geometry
+from neural_renderer_torch.rasterize import forward_dense, geometry
 
 # (edge, axis) walk order, axis-major: channel 2 * _EA.index((e, a)) + k
 # holds term c_k of edge e walked along axis a (JAX backward.py:46)
@@ -307,3 +307,61 @@ def depth_channels(settings, covered, z, face_inv_map, weight_map,
         chans.append(g * weight_map[..., v] * d2 / (z[..., v] * z[..., v]))
     contrib = torch.stack(chans, dim=1)
     return torch.where(covered[:, None], contrib, 0.0)
+
+
+def out_sweep_stats(settings, faces, face_index_map):
+    """One walk of the covered pixels' crossings of their own face's edges
+    with their own column (row), as the out-sweep finds them, for every
+    (edge, axis) of ``_EA``.  Returns a dict of Python numbers:
+
+      * ``out_crossings``: most active crossings of one (batch element,
+        axis), the JAX package's ``grad_out_cap`` requirement;
+      * ``row_crossings``: most of one (batch element, axis, image row), its
+        ``grad_row_cap`` requirement (JAX backward.py:601-631);
+      * ``out_offset``: largest ``|d1_out - pixel|`` over the valid
+        crossings, its ``grad_offset_radius`` requirement (JAX
+        backward.py:205-230);
+      * ``active`` and ``positions``: all active crossings, and the
+        positions they sweep (each from ``d1_out`` to the border): the
+        port's out-sweep work, which has no capacity and no radius."""
+    bs = faces.shape[0]
+    is_ = settings.image_size
+    covered = face_index_map >= 0
+    face_w = forward_dense.gather_face_rows(faces, face_index_map)
+    ppx = geometry.to_pixel_coords(face_w[..., 0], is_)
+    ppy = geometry.to_pixel_coords(face_w[..., 1], is_)
+    yi, xi = _pixel_grid(bs, is_, faces.device)
+    rows = [0, 0]                      # per axis [bs, is], summed over edges
+    offset, active, positions = 0.0, 0, 0
+    for e, a in _EA:
+        X, Y = _edge_coords(ppx, ppy, e, a)
+        d0 = xi if a == 0 else yi
+        d1 = yi if a == 0 else xi
+        cr = _crossing(settings, X, Y, a, d0)
+        valid = covered & cr['valid']
+        act = valid & (cr['d1_in'] == d1)
+        rows[a] = rows[a] + act.sum(dim=2)
+        off = torch.where(valid, torch.abs(cr['d1_out'] - d1), 0.0)
+        offset = max(offset, float(off.max()))
+        span = torch.where(cr['direction'] > 0, is_ - cr['d1_out'],
+                           cr['d1_out'] + 1.0)
+        active += int(act.sum())
+        positions += int(span[act].sum())
+    return dict(
+        out_crossings=max(int(r.sum(1).max()) for r in rows),
+        row_crossings=max(int(r.max()) for r in rows),
+        out_offset=offset, active=active, positions=positions)
+
+
+def count_out_crossings(settings, faces, face_index_map, per_row=False):
+    """Most active out-sweep crossings of one (batch element, axis), or
+    with ``per_row=True`` of one (batch element, axis, image row)
+    (``out_sweep_stats``)."""
+    stats = out_sweep_stats(settings, faces, face_index_map)
+    return stats['row_crossings' if per_row else 'out_crossings']
+
+
+def max_out_offset(settings, faces, face_index_map):
+    """Largest ``|d1_out - pixel|`` over the valid crossings of covered
+    pixels (``out_sweep_stats``)."""
+    return out_sweep_stats(settings, faces, face_index_map)['out_offset']

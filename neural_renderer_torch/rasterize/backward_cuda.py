@@ -33,6 +33,7 @@ import torch
 from neural_renderer_torch import _build
 from neural_renderer_torch.rasterize import backward as bwd
 from neural_renderer_torch.rasterize import texture as tex
+from neural_renderer_torch.rasterize.config import on_card
 
 # Kernel launches since import (or since a caller reset them), per kernel.
 LAUNCHES = {'insweep': 0, 'outsweep': 0, 'face_reduce': 0}
@@ -65,16 +66,6 @@ def _reduce():
     lib.nr_error_string.argtypes = [i32]
     lib.nr_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _route(t):
-    """True for a CUDA tensor (run the kernel), False for a CPU tensor (run
-    the plain version); any other device raises."""
-    if t.device.type == 'cpu':
-        return False
-    if t.device.type != 'cuda':
-        raise ValueError(f'no backward kernel for device {t.device}')
-    return True
 
 
 def _ptr(t):
@@ -165,7 +156,7 @@ def insweep(settings, xy, face_index_map, rgb=None, grad_rgb=None,
     bs, is_ = face_index_map.shape[0], settings.image_size
     if out is not None:
         _check_out(out, bs, is_)
-    if not _route(xy):
+    if not on_card(xy):
         res = insweep_plain(settings, xy, face_index_map, rgb, grad_rgb,
                             grad_alpha)
         return res if out is None else out.copy_(res)
@@ -196,7 +187,7 @@ def outsweep(settings, xy, face_index_map, rgb=None, grad_rgb=None,
         _check_out(out, bs, is_)
     elif accumulate:
         raise ValueError('accumulate needs out')
-    if not _route(xy):
+    if not on_card(xy):
         res = outsweep_plain(settings, xy, face_index_map, rgb, grad_rgb,
                              grad_alpha)
         if out is None:
@@ -284,7 +275,7 @@ def face_reduce(stack, face_index_map, nf, ts=0):
                          f'{face_index_map.dtype} '
                          f'{tuple(face_index_map.shape)}')
     c_out = _expanded_width(C, ts)
-    if not _route(stack):
+    if not on_card(stack):
         return face_reduce_plain(stack, face_index_map, nf, ts)
     if bs * is_ * is_ >= 2 ** 31 or bs * nf >= 2 ** 31:
         raise ValueError('face_reduce indexes pixels and faces with int32')

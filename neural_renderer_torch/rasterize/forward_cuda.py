@@ -1,11 +1,18 @@
-"""Binned shaded forward: the hand-written CUDA kernel and its plain version.
+"""Binned forward: the hand-written CUDA kernels, their plain versions, and
+the JAX package's scene counters.
 
-Counterpart of the JAX package's ``forward_pallas.forward_shaded``.  One call
-produces, per pixel of each batch row, the winning face (lowest id among the
-front faces with the strictly smallest perspective depth, the reference's
-first-wins rule, rasterize.py:334), its renormalized barycentric weights and
-depth, its NDC vertex coordinates, and the K4 trilinear texture colour for
-texture cubes with ``ts <= 4`` (reference rasterize.py:398-425).
+``forward_shaded`` is the counterpart of the JAX package's
+``forward_pallas.forward_shaded``.  One call produces, per pixel of each
+batch row, the winning face (lowest id among the front faces with the
+strictly smallest perspective depth, the reference's first-wins rule,
+rasterize.py:334), its renormalized barycentric weights and depth, its NDC
+vertex coordinates, and the K4 trilinear texture colour for texture cubes
+with ``ts <= 4`` (reference rasterize.py:398-425).
+
+``forward_face_index_map`` is the counterpart of
+``forward_pallas.forward_face_index_map``: the winning face and the raw
+minimum depth only (the quantity the z test compares), for ``tune`` and
+``measure_scene``.
 
 The per-face precompute and the binning are plain PyTorch, as the JAX package
 does them in XLA (``forward_pallas._feature_table``, ``_face_tile_ranges``):
@@ -18,12 +25,16 @@ does them in XLA (``forward_pallas._feature_table``, ``_face_tile_ranges``):
     conservative pixel bbox (``+-1`` pad) overlaps, in ascending face order,
     as CSR lists (``start`` offsets + face ``ids``).
 
-The kernel (``csrc/forward_shaded.cu``) renders one tile per block and loops
-over any list length, so there is no capacity limit and nothing to tune.
+The kernels (``csrc/forward_shaded.cu``, ``csrc/forward_index.cu``) render
+one tile per block and loop over any list length, so there is no capacity
+limit and nothing to tune.  Each wrapper sends a CUDA tensor to its kernel
+(or raises) and a CPU tensor to its plain version, built from
+``forward_dense`` (and ``texture.sample_textures``).
 
-``forward_shaded`` sends a CUDA tensor to the kernel (or raises) and a CPU
-tensor to ``forward_shaded_plain``, the dense version built from
-``forward_dense`` and ``texture.sample_textures``.
+The scene counters (``binning_overflow``, ``chunks_needed``,
+``csr_rows_needed``, ``chunk_capacity``) give the JAX package's integers for
+its Pallas forward's capacities, from its binning definitions (32-px
+patches, 128-face chunks, 16,384-face slices); ``tune`` reports them.
 """
 
 import ctypes
@@ -34,10 +45,15 @@ import torch
 from neural_renderer_torch import _build
 from neural_renderer_torch.rasterize import forward_dense, geometry
 from neural_renderer_torch.rasterize import texture as tex
+from neural_renderer_torch.rasterize.config import on_card
 
-# Kernel launches since import (or since a caller reset it): one per launch
-# of the CUDA kernel, never for the plain version.
-LAUNCHES = 0
+# Kernel launches since import (or since a caller reset them), per kernel:
+# one per launch of the CUDA kernel, never for the plain version.
+LAUNCHES = {'forward_shaded': 0, 'forward_index': 0}
+
+# faces per chunk of the JAX package's Pallas forward (forward_pallas.py:94);
+# the port's kernels have no chunks, the scene counters count in them
+_CHUNK = 128
 
 # the kernel shades cubes up to ts=4 (the reference Mesh default,
 # reference mesh.py:21); bigger cubes are sampled after it, as in the JAX
@@ -56,6 +72,21 @@ def _kernel():
     lib.nr_forward_shaded.restype = i32
     lib.nr_forward_shaded_tile.argtypes = []
     lib.nr_forward_shaded_tile.restype = i32
+    lib.nr_error_string.argtypes = [i32]
+    lib.nr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _index_kernel():
+    """The index-and-depth kernel's library, built at first use."""
+    lib = _build.load('forward_index')
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nr_forward_index.argtypes = [ptr, ptr, ptr, i32, i32, i32, f32, f32,
+                                     ptr, ptr, ptr]
+    lib.nr_forward_index.restype = i32
+    lib.nr_forward_index_tile.argtypes = []
+    lib.nr_forward_index_tile.restype = i32
     lib.nr_error_string.argtypes = [i32]
     lib.nr_error_string.restype = ctypes.c_char_p
     return lib
@@ -167,23 +198,15 @@ def forward_shaded(settings, faces, textures=None):
     cube is shaded by ``texture.sample_textures`` after this call, as in the
     JAX package); a CPU tensor runs ``forward_shaded_plain``.
     """
-    global LAUNCHES
     _check(settings, faces, textures)
-    if faces.device.type == 'cpu':
+    if not on_card(faces):
         return forward_shaded_plain(settings, faces, textures)
-    if faces.device.type != 'cuda':
-        raise ValueError(f'no forward for device {faces.device}')
     ts = 0 if textures is None else textures.shape[2]
     if textures is not None and not 2 <= ts <= MAX_FUSED_TS:
         raise ValueError(f'the kernel shades 2 <= ts <= {MAX_FUSED_TS}; '
                          f'got ts={ts}')
 
-    lib = _kernel()
-    bs, nf = faces.shape[:2]
-    is_ = settings.image_size
-    faces = faces.contiguous()
-    rec = _face_records(settings, faces)
-    start, ids = bin_faces(settings, faces, lib.nr_forward_shaded_tile())
+    bs, is_ = faces.shape[0], settings.image_size
     texc = None if textures is None else textures.contiguous()
 
     def empty(*shape, dtype=torch.float32):
@@ -194,24 +217,37 @@ def forward_shaded(settings, faces, textures=None):
                xy=empty(bs, 6, is_, is_), z=empty(bs, 3, is_, is_))
     if textures is not None:
         out['rgb'] = empty(bs, 3, is_, is_)
+    _launch_binned(
+        _kernel(), 'forward_shaded', settings, faces, [_ptr(texc)],
+        [ts, settings.near, settings.far, ts - 1 - settings.eps],
+        [out['face_index_map'], out['depth_map'], out['weights'], out['xy'],
+         out['z'], out.get('rgb')])
+    return out
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
 
-    tif_max = ts - 1 - settings.eps
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_binned(lib, name, settings, faces, inputs, scalars, outputs):
+    """Launch kernel ``name`` of ``lib`` on the binned tiles of ``faces``:
+    ``nr_<name>(records, start, ids, *inputs, bs, nf, is, *scalars,
+    *outputs, stream)``, with the per-face records and the CSR tile lists
+    made here at the kernel's tile size.  Raises if the launch fails;
+    counts it in ``LAUNCHES`` otherwise."""
+    faces = faces.contiguous()
+    bs, nf = faces.shape[:2]
+    rec = _face_records(settings, faces)
+    start, ids = bin_faces(settings, faces, getattr(lib, f'nr_{name}_tile')())
     with torch.cuda.device(faces.device):
-        rc = lib.nr_forward_shaded(
-            ptr(rec), ptr(start), ptr(ids), ptr(texc), bs, nf, is_, ts,
-            settings.near, settings.far, tif_max,
-            ptr(out['face_index_map']), ptr(out['depth_map']),
-            ptr(out['weights']), ptr(out['xy']), ptr(out['z']),
-            ptr(out.get('rgb')),
+        rc = getattr(lib, f'nr_{name}')(
+            rec.data_ptr(), start.data_ptr(), ids.data_ptr(), *inputs,
+            bs, nf, settings.image_size, *scalars, *map(_ptr, outputs),
             torch.cuda.current_stream(faces.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError('forward_shaded kernel launch failed: '
+        raise RuntimeError(f'{name} kernel launch failed: '
                            + lib.nr_error_string(rc).decode())
-    LAUNCHES += 1
-    return out
+    LAUNCHES[name] += 1
 
 
 def forward_shaded_plain(settings, faces, textures=None):
@@ -237,3 +273,131 @@ def forward_shaded_plain(settings, faces, textures=None):
                                   weight_map, depth_map)
         out['rgb'] = rgb.permute(0, 3, 1, 2).contiguous()
     return out
+
+
+def forward_face_index_map(settings, faces):
+    """NDC ``faces [bs, nf, 3, 3]`` -> (face_index_map int32 ``[bs, is, is]``,
+    -1 uncovered; depth f32 ``[bs, is, is]``, the raw minimum
+    ``wsum / sum_k w_k (1/z_k)`` of the z test, ``far`` uncovered).
+
+    A CUDA tensor runs ``csrc/forward_index.cu`` (any face count, one
+    launch); a CPU tensor runs ``forward_face_index_map_plain``.
+    """
+    _check(settings, faces, None)
+    if not on_card(faces):
+        return forward_face_index_map_plain(settings, faces)
+    shape = (faces.shape[0], settings.image_size, settings.image_size)
+    idx = torch.empty(shape, dtype=torch.int32, device=faces.device)
+    depth = torch.empty(shape, dtype=torch.float32, device=faces.device)
+    _launch_binned(_index_kernel(), 'forward_index', settings, faces, [],
+                   [settings.near, settings.far], [idx, depth])
+    return idx, depth
+
+
+# the plain version of forward_face_index_map: the dense oracle returns
+# exactly these two maps
+forward_face_index_map_plain = forward_dense.forward_face_index_map
+
+
+# ---- the JAX package's scene counters (forward_pallas.py) ----
+
+def slice_size():
+    """Faces per pass of the JAX package's Pallas forward: its 19-feature
+    face table, padded to 128 lanes, fills an 8 MB VMEM budget at 16,384
+    faces (forward_pallas.py:111-119); larger meshes run there as several
+    passes.  The port's kernels take any face count in one launch."""
+    return 16384
+
+
+def _patch_dim(settings):
+    return min(32, settings.image_size)
+
+
+def patch_counts(settings, faces):
+    """Front faces binned to each square patch, ``[bs, t, t]`` int64 with
+    ``t = is // min(32, is)``: the counts of the JAX package's
+    ``_membership_prefix`` (forward_pallas.py:211-262), same conservative
+    bbox (``+-1`` pad), same clipping, and a NaN tile index cast to 0 as
+    XLA casts it.  Each face's patch rectangle is added to a 2-D difference
+    array and summed up, so no ``[bs, patches, nf]`` mask is built."""
+    bs, nf = faces.shape[:2]
+    is_ = settings.image_size
+    p = _patch_dim(settings)
+    t = is_ // p
+    front = geometry.is_frontface(faces)
+    px = geometry.to_pixel_coords(faces[..., 0], is_)
+    py = geometry.to_pixel_coords(faces[..., 1], is_)
+
+    def rng(lo, hi):
+        def tile(v):
+            v = torch.clamp(torch.floor(v / p), 0, t - 1)
+            return torch.nan_to_num(v, nan=0.0).long()
+        t0, t1 = tile(lo), tile(hi)
+        empty = (hi < 0) | (lo > is_ - 1)
+        return t0, torch.where(empty, t0 - 1, t1)
+
+    ty0, ty1 = rng(torch.floor(py.amin(-1)) - 1.0,
+                   torch.ceil(py.amax(-1)) + 1.0)
+    tx0, tx1 = rng(torch.floor(px.amin(-1)) - 1.0,
+                   torch.ceil(px.amax(-1)) + 1.0)
+    live = front & (ty1 >= ty0) & (tx1 >= tx0)
+    b = torch.arange(bs, device=faces.device)[:, None].expand(bs, nf)
+    diff = torch.zeros(bs * (t + 1) * (t + 1), dtype=torch.int64,
+                       device=faces.device)
+    for y, x, sign in ((ty0, tx0, 1), (ty0, tx1 + 1, -1),
+                       (ty1 + 1, tx0, -1), (ty1 + 1, tx1 + 1, 1)):
+        at = ((b * (t + 1) + y) * (t + 1) + x)[live]
+        diff.index_add_(0, at, torch.full_like(at, sign))
+    counts = diff.reshape(bs, t + 1, t + 1).cumsum(1).cumsum(2)
+    return counts[:, :t, :t]
+
+
+def _slices(faces):
+    s = slice_size()
+    return [faces[:, lo:lo + s] for lo in range(0, faces.shape[1], s)]
+
+
+def chunk_capacity(settings, nf, faces_per_tile_cap=None):
+    """The JAX package's per-patch face capacity for ``nf`` faces (the auto
+    density heuristic, or ``faces_per_tile_cap``), in whole 128-face chunks
+    (forward_pallas.py:458-467)."""
+    nt = (settings.image_size // _patch_dim(settings)) ** 2
+    if faces_per_tile_cap is None:
+        cap = min(nf, max(512, (nf * 16) // nt))
+    else:
+        cap = min(faces_per_tile_cap, nf)
+    return -(-cap // _CHUNK) * _CHUNK
+
+
+def binning_overflow(settings, faces):
+    """Most front faces binned to one patch, the max over 16,384-face
+    slices (forward_pallas.py:1120-1132): what ``faces_per_tile_cap`` must
+    cover in the JAX package."""
+    return max([int(patch_counts(settings, sl).max()) for sl in
+                _slices(faces)], default=0)
+
+
+def _chunks_per_patch(settings, sl, faces_per_tile_cap):
+    cap = chunk_capacity(settings, sl.shape[1], faces_per_tile_cap)
+    counts = patch_counts(settings, sl).clamp(max=cap)
+    return (counts + _CHUNK - 1) // _CHUNK
+
+
+def chunks_needed(settings, faces, faces_per_tile_cap=None):
+    """(patch, chunk) list entries of the JAX package's compact forward
+    grid, the max over slices (forward_pallas.py:536-550): what
+    ``forward_chunk_budget`` must cover."""
+    return max([int(_chunks_per_patch(settings, sl, faces_per_tile_cap)
+                    .clamp(min=1).sum()) for sl in _slices(faces)], default=0)
+
+
+def csr_rows_needed(settings, faces, faces_per_tile_cap=None):
+    """CSR rows, dump chunk included, of the JAX package's per-patch face
+    reduction (forward_pallas.py:1106-1117): what ``grad_csr_rows`` must
+    cover.  Defined for single-pass meshes (nf <= 16,384) only."""
+    if faces.shape[1] > slice_size():
+        raise ValueError(
+            f'CSR reduction requires nf <= {slice_size()} (single-pass '
+            'forward); multi-pass meshes reduce via the global segment_sum')
+    chunks = _chunks_per_patch(settings, faces, faces_per_tile_cap)
+    return (int(chunks.sum()) + 1) * _CHUNK

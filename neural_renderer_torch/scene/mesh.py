@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from neural_renderer_torch.io.obj import load_obj
+from neural_renderer_torch.rasterize.config import resolve_device
 
 
 class Mesh(nn.Module):
@@ -20,36 +21,39 @@ class Mesh(nn.Module):
     ``nn.Parameter``), faces [nf, 3] int64 (a buffer).
 
     ``Mesh('file.obj', texture_size=4)`` loads an OBJ like the reference
-    constructor (``from_obj`` with seed 0)."""
+    constructor (``from_obj`` with seed 0).  Parameters and buffer are built
+    on ``device``, the card unless asked otherwise
+    (``config.resolve_device``)."""
 
     def __init__(self, vertices, textures=None, faces=None, texture_size=4,
                  normalization=True, lr_vertices=1.0, lr_textures=1.0,
-                 spatial_order=False):
+                 spatial_order=False, device=None):
         super().__init__()
         if spatial_order:
             raise NotImplementedError(
                 'spatial_order needs ops/spatial.py, which is not ported yet '
                 '(ROADMAP Queue 1, "Tune, checks and the rest of the tail")')
+        device = resolve_device(device)
         if isinstance(vertices, str):
             vertices, textures, faces = _obj_arrays(
                 vertices, texture_size, normalization, 0)
         self.vertices = nn.Parameter(torch.tensor(
-            np.asarray(vertices, np.float32)))
+            np.asarray(vertices, np.float32), device=device))
         self.textures = (None if textures is None else nn.Parameter(
-            torch.tensor(np.asarray(textures, np.float32))))
+            torch.tensor(np.asarray(textures, np.float32), device=device)))
         self.register_buffer('faces', torch.tensor(
-            np.asarray(faces, np.int64)))
+            np.asarray(faces, np.int64), device=device))
         self.lr_vertices = lr_vertices
         self.lr_textures = lr_textures
 
     @classmethod
     def from_obj(cls, filename_obj, texture_size=4, normalization=True,
-                 seed=0):
+                 seed=0, device=None):
         """Load an OBJ; textures ~ Normal(0, 0.05) like
         chainer.initializers.Normal (mesh.py:20-22), drawn from
         ``np.random.RandomState(seed)`` as the JAX package draws them."""
         return cls(*_obj_arrays(filename_obj, texture_size, normalization,
-                                seed))
+                                seed), device=device)
 
     @property
     def num_vertices(self):

@@ -53,6 +53,11 @@ class Renderer(object):
         # rasterization
         self.rasterizer_eps = 1e-3
 
+        # the capacities ``tune`` measured, kept as the JAX package keeps
+        # them; nothing here reads them: no kernel of the port has a
+        # capacity, so every render is exact and none needs tuning
+        self.perf_overrides = {}
+
     # ------------------------------------------------------------------
     def _transform(self, vertices):
         """Viewpoint + perspective transform (renderer.py:39-48,92-100)."""

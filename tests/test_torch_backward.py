@@ -74,7 +74,7 @@ def scene():
         r.eye = nt.get_points_from_angles(2.732, 30.0, az)
         fc, _ = r._lit_faces(*nt.arrays_from_numpy(
             v[None], f[None], np.ones((1, f.shape[0], 2, 2, 2, 3),
-                                      np.float32)))
+                                      np.float32), device='cpu'))
         fcs.append(fc)
     fc = torch.cat(fcs).numpy()
     s = JSet(image_size=IS, eps=EPS, runtime_checks=False)
@@ -307,7 +307,7 @@ def _port_grad(vertices, pyi, pxi, on_face, mode):
     v, f, t = utils.to_minibatch((np.array(vertices, np.float32),
                                   np.array([[0, 1, 2]], np.int32),
                                   np.ones((1, 4, 4, 4, 3), np.float32)))
-    vt, ft, tt = nt.arrays_from_numpy(v, f, t)
+    vt, ft, tt = nt.arrays_from_numpy(v, f, t, device='cpu')
     vt.requires_grad_()
     if mode == 'rgb':
         images = r.render(vt, ft, tt).mean(1)

@@ -108,7 +108,8 @@ def _teapot_faces(image_size):
     r = nt.Renderer()
     r.eye = [1.0, 1.0, -2.7]
     r.image_size = image_size
-    fc, _ = r._lit_faces(*nt.arrays_from_numpy(vertices, faces, textures))
+    fc, _ = r._lit_faces(*nt.arrays_from_numpy(vertices, faces, textures,
+                                                device='cpu'))
     return fc
 
 
@@ -148,7 +149,7 @@ def test_kernel_wrapper_routes_cpu_to_plain():
     nothing."""
     fc, tx = _scene(2)
     s = TSet(image_size=IS, eps=1e-3)
-    before = forward_cuda.LAUNCHES
+    before = dict(forward_cuda.LAUNCHES)
     got = forward_cuda.forward_shaded(s, torch.as_tensor(fc),
                                       torch.as_tensor(tx))
     assert forward_cuda.LAUNCHES == before

@@ -22,7 +22,8 @@ v, f = nt.load_obj('tests/data/teapot.obj')
 assert v.shape == (1292, 3) and f.shape == (2464, 3), (v.shape, f.shape)
 r = nt.Renderer()
 r.image_size = 32
-sil = r.render_silhouettes(*nt.arrays_from_numpy(v[None], f[None])[:2])
+sil = r.render_silhouettes(
+    *nt.arrays_from_numpy(v[None], f[None], device='cpu')[:2])
 assert sil.shape == (1, 32, 32) and float(sil.max()) == 1.0
 assert not any(m.startswith('jax') and sys.modules[m] is not None
                for m in sys.modules)

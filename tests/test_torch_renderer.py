@@ -43,7 +43,7 @@ def _pair(aa, image_size=64):
     rj = nr.Renderer()
     rj.image_size = image_size
     rj.anti_aliasing = aa
-    return rj, nt.renderer_from_jax(rj)
+    return rj, nt.renderer_from_jax(rj, device='cpu')
 
 
 @pytest.mark.parametrize('aa', [False, True])
@@ -52,7 +52,8 @@ def test_render_matches_jax(teapot, aa, ts):
     vertices, faces, tex = teapot
     rj, rt = _pair(aa)
     want = np.asarray(rj.render(vertices, faces, tex[ts]))
-    got = rt.render(*nt.arrays_from_numpy(vertices, faces, tex[ts])).numpy()
+    got = rt.render(*nt.arrays_from_numpy(vertices, faces, tex[ts],
+                                          device='cpu')).numpy()
     assert got.shape == want.shape == (4, 3, 64, 64)
     np.testing.assert_array_equal(got.max(1) > 0, want.max(1) > 0)
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
@@ -65,7 +66,7 @@ def test_render_silhouettes_matches_jax(teapot, aa):
     rj, rt = _pair(aa)
     want = np.asarray(rj.render_silhouettes(vertices, faces))
     got = rt.render_silhouettes(
-        *nt.arrays_from_numpy(vertices, faces)[:2]).numpy()
+        *nt.arrays_from_numpy(vertices, faces, device='cpu')[:2]).numpy()
     np.testing.assert_array_equal(got > 0, want > 0)
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
@@ -75,7 +76,8 @@ def test_render_depth_matches_jax(teapot, aa):
     vertices, faces, _ = teapot
     rj, rt = _pair(aa)
     want = np.asarray(rj.render_depth(vertices, faces))
-    got = rt.render_depth(*nt.arrays_from_numpy(vertices, faces)[:2]).numpy()
+    got = rt.render_depth(
+        *nt.arrays_from_numpy(vertices, faces, device='cpu')[:2]).numpy()
     far = nt.DEFAULT_FAR
     np.testing.assert_array_equal(got < far, want < far)
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
@@ -91,7 +93,8 @@ def test_blender_golden(teapot):
     r.anti_aliasing = False
     r.light_intensity_ambient = 1.0
     r.light_intensity_directional = 0.0
-    images = r.render(*nt.arrays_from_numpy(vertices, faces, textures))
+    images = r.render(*nt.arrays_from_numpy(vertices, faces, textures,
+                                            device='cpu'))
     image = images[2].mean(0).numpy()
     np.testing.assert_allclose(utils.load_blender_silhouette(), image,
                                rtol=1e-4, atol=1e-5)
@@ -106,8 +109,8 @@ def test_aa_rgb_fingerprint(teapot):
     textures = np.ones((4, faces.shape[1], 4, 4, 4, 3), np.float32)
     r = nt.Renderer()
     r.eye = [1.0, 1.0, -2.7]
-    images = r.render(*nt.arrays_from_numpy(vertices, faces,
-                                            textures)).numpy()
+    images = r.render(*nt.arrays_from_numpy(vertices, faces, textures,
+                                            device='cpu')).numpy()
     np.testing.assert_allclose(images[2], ref['image'], atol=1e-5, rtol=0)
     assert images[[0, 1, 3]].max() == 0
 
@@ -125,7 +128,7 @@ def test_renderer_from_jax(teapot):
     rj.light_color_directional = [1.0, 0.8, 0.6]
     rj.background_color = [0.2, 0.3, 0.4]
     rj.viewing_angle = 27
-    rt = nt.renderer_from_jax(rj)
+    rt = nt.renderer_from_jax(rj, device='cpu')
     for name in ('camera_mode', 'camera_direction', 'light_direction',
                  'light_intensity_ambient', 'light_color_directional',
                  'background_color', 'viewing_angle', 'image_size',
@@ -140,7 +143,8 @@ def test_renderer_from_jax(teapot):
     # (ROADMAP Queue 3)
     textures = np.ones_like(tex[2])
     want = np.asarray(rj.render(vertices, faces, textures))
-    got = rt.render(*nt.arrays_from_numpy(vertices, faces, textures)).numpy()
+    got = rt.render(*nt.arrays_from_numpy(vertices, faces, textures,
+                                          device='cpu')).numpy()
     bg = np.array([0.2, 0.3, 0.4], np.float32)[:, None, None]
     np.testing.assert_array_equal(np.abs(got - bg).max(1) > 0,
                                   np.abs(want - bg).max(1) > 0)
@@ -154,7 +158,7 @@ def test_arrays_from_mesh_batch():
     mesh = nr.Mesh.from_obj(os.path.join(utils.DATA_DIR, 'tetrahedron.obj'),
                             texture_size=2)
     v, f, t = (np.asarray(a) for a in mesh.get_batch(3))
-    vt, ft, tt = nt.arrays_from_numpy(v, f, t)
+    vt, ft, tt = nt.arrays_from_numpy(v, f, t, device='cpu')
     assert vt.dtype == torch.float32 and tt.dtype == torch.float32
     assert ft.dtype == torch.int64
     np.testing.assert_array_equal(vt.numpy(), v)

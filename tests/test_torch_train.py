@@ -47,7 +47,7 @@ def _renderers(aa, eye=None):
     rj.anti_aliasing = aa
     if eye is not None:
         rj.eye = eye
-    return rj, nt.renderer_from_jax(rj)
+    return rj, nt.renderer_from_jax(rj, device='cpu')
 
 
 def _assert_grads(got, want):
@@ -76,7 +76,7 @@ def _grads(method, aa, v, f, tx, weights):
     argnums = (0,) if tx is None else (0, 1)
     want = jax.grad(loss_j, argnums=argnums)(
         jnp.asarray(v), None if tx is None else jnp.asarray(tx))
-    vt, ft, tt = nt.arrays_from_numpy(v, f, tx)
+    vt, ft, tt = nt.arrays_from_numpy(v, f, tx, device='cpu')
     vt.requires_grad_()
     if tt is not None:
         tt.requires_grad_()
@@ -269,7 +269,7 @@ def test_adam_zero_lr_scale_freezes_parameter():
 
 def test_mesh_from_jax_get_batch():
     mj = nr.Mesh.from_obj(TEAPOT, texture_size=2, seed=5).set_lr(0.5, 2.0)
-    mt = nt.mesh_from_jax(mj)
+    mt = nt.mesh_from_jax(mj, device='cpu')
     assert mt.num_vertices == 1292 and mt.num_faces == 2464
     assert mt.texture_size == 2
     v, f, t = mt.get_batch(3)
@@ -279,20 +279,21 @@ def test_mesh_from_jax_get_batch():
     np.testing.assert_allclose(t.detach().numpy(), tj, rtol=1e-6, atol=1e-7)
     # from_obj draws the same textures from the same seed
     np.testing.assert_array_equal(
-        nt.Mesh.from_obj(TEAPOT, texture_size=2, seed=5).textures.detach()
+        nt.Mesh.from_obj(TEAPOT, texture_size=2, seed=5,
+                         device='cpu').textures.detach()
         .numpy(), np.asarray(mj.textures))
     groups = mt.lr_scales()
     assert [g['lr_scale'] for g in groups] == [0.5, 2.0]
     assert groups[0]['params'][0] is mt.vertices
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        nt.Mesh(TEAPOT, spatial_order=True)
+        nt.Mesh(TEAPOT, spatial_order=True, device='cpu')
 
 
 def test_three_adam_steps_match_jax():
     """Three Adam steps of an L2 fit of the teapot (ts 2 textures, seed 3)
     to a random target, port against JAX."""
     mj = nr.Mesh.from_obj(TEAPOT, texture_size=2, seed=3)
-    mt = nt.mesh_from_jax(mj)
+    mt = nt.mesh_from_jax(mj, device='cpu')
     rj, rt = _renderers(False, nr.get_points_from_angles(2.732, 30.0, 45.0))
     target = np.random.RandomState(0).uniform(0, 1, (2, 3, IS, IS)).astype(
         np.float32)
