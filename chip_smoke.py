@@ -22,13 +22,20 @@ Phases (any failure exits non-zero; progress goes to stdout):
      64^2 scenes (rgb + alpha, alpha only, rgb + alpha + depth), the teapot
      at 512^2 (bs 4 ts 2), the golden batch at ts 4 (the all-zero meshes'
      rows must be exactly 0) and the main path's bs 32 ts 2.  In-sweep: 0
-     mismatches.  Out-sweep and per-face reduction: |err| <= 1e-4 x the
-     channel's (column's) max |value|.  Every kernel result of a repeated
-     run is bitwise equal.  All three timed at the main path's shape;
+     mismatches.  Out-sweep (written, and added to the in-sweep as the main
+     path runs it) and per-face reduction (on the forward's tile lists):
+     |err| <= 1e-4 x the channel's (column's) max |value|.  Every kernel
+     result of a repeated run is bitwise equal.  All three timed at the main
+     path's shape: the out-sweep as the main path calls it, added to the
+     K5 slice of the stack, with the phase's random output gradients and
+     with those of ``sum(image)`` through the 2x2 pool, and in write mode;
+     the reduction as one call and each of its two passes alone;
   7. the main path: a training step, forward plus ``sum(image).backward()``
      with respect to vertices and textures, at batch 32, 256^2 AA, ts 2,
      one step per bench azimuth after one warm-up step, counting launches
-     of every kernel (at least one per kernel per step);
+     of every kernel (at least one per kernel per step), then one more
+     sweep under torch.profiler: device time per step, the card's idle
+     share and the kernels' device times;
   8. a trainer: a ``Mesh`` of the teapot (ts 2), built on the card by
      ``Mesh.from_obj`` itself, fitted by ``Adam`` for 10 steps at batch 32
      (the 8 azimuths x 4), 256^2 AA, L2 against renders of a shifted mesh;
@@ -62,6 +69,8 @@ move over the card's memory rate and its operations over the f32 rate, from
 this run's inputs) and the library side's time where PyTorch has a call for
 the function's core: for the per-face reduction, its K6 expansion, the
 covered rows' gather and one ``index_add_``, from the kernel's own inputs.
+The out-sweep's and the reduction's entries also carry the other timings of
+phase 6.
 """
 
 import argparse
@@ -78,7 +87,8 @@ import torch
 import neural_renderer_torch as nt
 from neural_renderer_torch import _build
 from neural_renderer_torch.rasterize import backward as bwd
-from neural_renderer_torch.rasterize import backward_cuda, core, forward_cuda
+from neural_renderer_torch.rasterize import api, backward_cuda, core
+from neural_renderer_torch.rasterize import forward_cuda
 from neural_renderer_torch.rasterize import texture as tex
 from neural_renderer_torch.rasterize.config import RasterizeSettings
 
@@ -101,9 +111,11 @@ F32_OPS_PER_S = 67e12
 # f32 operations the z test needs per (pixel, binned face) pair at the
 # least: three edge tests of two differences, two products and a compare
 PAIR_OPS = 15
-# per out-sweep position at the least: the rgb value difference times the
-# gradient, summed over 3 channels (3 sub, 3 mul, 2 add)
-SWEEP_POS_OPS = 8
+# per out-sweep position at the least: dg, the rgb value difference times
+# the gradient summed over 3 channels (3 sub, 3 mul, 2 add), the offset
+# q - d1_cross (1), and per term its product, +-eps, its division and its
+# add to the sum (2 x 4)
+SWEEP_POS_OPS = 17
 
 # kernel vs plain: the same separately rounded f32 operations in the same
 # order, except that sums may be taken in another order
@@ -165,7 +177,7 @@ def _bound(nbytes, ops):
 def _binned_pairs(settings, faces, tile):
     """(pixel, binned face) pairs of the forward kernels: each tile's list
     length times its pixels inside the image."""
-    start, _ = forward_cuda.bin_faces(settings, faces, tile)
+    start = forward_cuda.bin_faces(settings, faces, tile)[0]
     is_ = settings.image_size
     nt_ = -(-is_ // tile)
     lengths = (start[1:] - start[:-1]).reshape(-1, nt_, nt_).long()
@@ -291,8 +303,10 @@ def _time_ms(fn, reps, warmup=1):
 
 def _kernel_device_ms(fn, reps, kernel_name):
     """Device time per call of the CUDA kernels whose name contains
-    ``kernel_name``, from torch.profiler; None where the profiler reports
-    no device time."""
+    ``kernel_name`` (summed over the kernels one call launches), from
+    torch.profiler: each kernel's mean duration over the launches the
+    profiler caught, which need not be all ``reps`` of them; None where the
+    profiler reports no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -303,10 +317,53 @@ def _kernel_device_ms(fn, reps, kernel_name):
         torch.cuda.synchronize()
     total = 0.0
     for ev in prof.key_averages():
-        if kernel_name in ev.key:
+        if kernel_name in ev.key and ev.count:
             total += getattr(ev, 'device_time_total',
-                             getattr(ev, 'cuda_time_total', 0.0))
-    return total / 1000.0 / reps if total > 0 else None
+                             getattr(ev, 'cuda_time_total', 0.0)) / ev.count
+    return total / 1000.0 if total > 0 else None
+
+
+# kernels whose device time the training-step profile reports, by the
+# substring of their names
+PROFILED = {'forward_shaded': 'shaded_kernel', 'insweep': 'insweep_kernel',
+            'outsweep': 'outsweep_', 'face_reduce': 'face_reduce_'}
+
+
+def _step_profile(step, eyes):
+    """One sweep of ``step`` over ``eyes`` under torch.profiler: (device ms
+    per step, the sum of the card's kernel and copy durations; profiled
+    wall ms per step; {kernel: mean device ms per launch, one launch per
+    step}), or None where the profiler reports no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for eye in eyes:
+            step(eye)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    total = 0.0
+    by = {k: [0.0, 0, set()] for k in PROFILED}   # us, events, kernels
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        total += us
+        for name, pattern in PROFILED.items():
+            if pattern in ev.name:
+                by[name][0] += us
+                by[name][1] += 1
+                by[name][2].add(ev.name)
+    if total <= 0:
+        return None
+    n = len(eyes)
+    # per launch: the mean over the events caught, times the kernels one
+    # launch runs (face_reduce's two passes)
+    return (total / 1e3 / n, wall * 1e3 / n,
+            {k: us / count * len(kernels) / 1e3 if count else 0.0
+             for k, (us, count, kernels) in by.items()})
 
 
 def _fmt_ms(x):
@@ -347,14 +404,33 @@ def _bwd_scene(settings, faces, textures, rng, dev):
     return maps, grads
 
 
+def _sum_image_grads(bs, is_, dev):
+    """The output gradients of ``sum(image)`` as autograd hands them to
+    the rasterizer's rgb ``[bs, is, is, 3]``: through the vertical flip and
+    the 2x2 mean pool of ``api._render_pass``."""
+    x = torch.zeros((bs, is_, is_, 3), device=dev, requires_grad=True)
+    image = api._avg_pool_2x2(torch.flip(x.permute(0, 3, 1, 2), dims=[2]))
+    g_rgb, = torch.autograd.grad(image.sum(), x)
+    return dict(g_rgb=g_rgb, g_alpha=None, g_depth=None)
+
+
 def _sweep_args(settings, maps, grads):
+    """The sweeps' operands as ``core._k5_stack`` passes them: rgb and grad
+    rgb as permuted NHWC views."""
     rgb = grgb = ga = None
     if settings.return_rgb:
-        rgb = maps['rgb'].permute(0, 3, 1, 2).contiguous()
-        grgb = grads['g_rgb'].permute(0, 3, 1, 2).contiguous()
+        rgb = maps['rgb'].permute(0, 3, 1, 2)
+        grgb = grads['g_rgb'].permute(0, 3, 1, 2)
     if settings.return_alpha:
         ga = grads['g_alpha']
     return (settings, maps['xy'], maps['face_index_map'], rgb, grgb, ga)
+
+
+def _accumulated(args):
+    """The K5 channels as ``core._k5_stack`` makes them: the in-sweep, then
+    the out-sweep added in place (``accumulate=True``)."""
+    acc = backward_cuda.insweep(*args)
+    return backward_cuda.outsweep(*args, out=acc, accumulate=True)
 
 
 def _channel_stack(settings, maps, grads, nf, ts):
@@ -376,7 +452,7 @@ def _compare_backward(name, settings, maps, grads, nf, ts, worst):
         args = _sweep_args(settings, maps, grads)
         got = backward_cuda.insweep(*args)
         again = backward_cuda.insweep(*args)
-        want = backward_cuda.insweep_plain(*args)
+        want = want_in = backward_cuda.insweep_plain(*args)
         torch.cuda.synchronize()
         mism = int((got != want).sum())
         nonzero = int((want != 0).sum())
@@ -394,14 +470,22 @@ def _compare_backward(name, settings, maps, grads, nf, ts, worst):
         _require(bool(torch.equal(got, again)), f'{name}: outsweep repeat '
                  'run differs')
         err, ratio = _sum_check(f'{name} outsweep', got, want, 1)
-        worst['outsweep'] = max(worst['outsweep'], err)
+        # the main path's mode: added to the in-sweep's channels in place
+        acc, acc2 = _accumulated(args), _accumulated(args)
+        torch.cuda.synchronize()
+        _require(bool(torch.equal(acc, acc2)), f'{name}: outsweep '
+                 'accumulate repeat run differs')
+        err_acc, ratio_acc = _sum_check(f'{name} outsweep accumulate', acc,
+                                        want_in + want, 1)
+        worst['outsweep'] = max(worst['outsweep'], err, err_acc)
         msg.append(f'outsweep max abs err {err} ({ratio:.3g} x channel '
-                   f'max, nonzero {int((want != 0).sum())});')
+                   f'max, nonzero {int((want != 0).sum())}), accumulated '
+                   f'on the in-sweep {err_acc} ({ratio_acc:.3g} x);')
 
     stack, k6 = _channel_stack(settings, maps, grads, nf, ts)
-    got = backward_cuda.face_reduce(stack, fim, nf, k6)
+    got = backward_cuda.face_reduce(stack, fim, nf, k6, maps['bins'])
     stack2, _ = _channel_stack(settings, maps, grads, nf, ts)
-    again = backward_cuda.face_reduce(stack2, fim, nf, k6)
+    again = backward_cuda.face_reduce(stack2, fim, nf, k6, maps['bins'])
     want = backward_cuda.face_reduce_plain(stack, fim, nf, k6)
     torch.cuda.synchronize()
     _require(bool(torch.equal(stack, stack2)), f'{name}: channel stack '
@@ -644,17 +728,24 @@ def main():
     sweep = _sweep_args(s_rgb, maps, grads)
     stack, k6 = _channel_stack(s_rgb, maps, grads, nf2, 2)
     fim = maps['face_index_map']
+    bins = maps['bins']
+    # the out-sweep as the main path runs it: added in place to the K5
+    # slice of the stack after the in-sweep (a scratch copy, which the
+    # repeated timing keeps adding to)
+    k5 = stack[:, :12].clone()
     bench = {
         'insweep': (lambda: backward_cuda.insweep(*sweep),
                     lambda: backward_cuda.insweep_plain(*sweep),
                     'insweep_kernel', 20, 3),
-        'outsweep': (lambda: backward_cuda.outsweep(*sweep),
-                     lambda: backward_cuda.outsweep_plain(*sweep),
-                     'outsweep_kernel', 10, 1),
-        'face_reduce': (lambda: backward_cuda.face_reduce(stack, fim, nf2, k6),
+        'outsweep': (lambda: backward_cuda.outsweep(*sweep, out=k5,
+                                                    accumulate=True),
+                     lambda: k5.add_(backward_cuda.outsweep_plain(*sweep)),
+                     'outsweep_', 20, 1),
+        'face_reduce': (lambda: backward_cuda.face_reduce(stack, fim, nf2, k6,
+                                                          bins),
                         lambda: backward_cuda.face_reduce_plain(
                             stack, fim, nf2, k6),
-                        'face_reduce_kernel', 20, 3),
+                        'face_reduce_', 20, 3),
     }
     for name, (kern, plain_fn, kname, reps, preps) in bench.items():
         k1 = _time_ms(kern, reps=reps, warmup=2)
@@ -668,6 +759,47 @@ def main():
              f'plain {p1:.3f} / {p2:.3f} ms (kernel, plain, kernel, plain); '
              f'kernel alone (profiler) {_fmt_ms(alone[name])}')
 
+    # the out-sweep with the output gradients of the main path, sum(image)
+    # through the 2x2 pool (write mode checked against the plain version),
+    # and in write mode with phase 6's random gradients
+    sweep_sum = _sweep_args(s_rgb, maps,
+                            _sum_image_grads(BATCH, RASTER, dev))
+    got = backward_cuda.outsweep(*sweep_sum)
+    err, ratio = _sum_check('outsweep sum(image) gradients', got,
+                            backward_cuda.outsweep_plain(*sweep_sum), 1)
+
+    def out_sum():
+        return backward_cuda.outsweep(*sweep_sum, out=k5, accumulate=True)
+
+    def out_write():
+        return backward_cuda.outsweep(*sweep)
+
+    extra = {'outsweep': dict(
+        sum_image_ms=_time_ms(out_sum, reps=20, warmup=2),
+        sum_image_alone_ms=_kernel_device_ms(out_sum, 5, 'outsweep_'),
+        write_mode_ms=_time_ms(out_write, reps=20, warmup=2),
+        write_mode_alone_ms=_kernel_device_ms(out_write, 5,
+                                              'outsweep_'))}
+    bworst['outsweep'] = max(bworst['outsweep'], err)
+    o = extra['outsweep']
+    _log(f'outsweep at bs {BATCH}, {RASTER}^2, rgb on {smi}: accumulate mode '
+         f'with the gradients of sum(image) {o["sum_image_ms"]:.3f} ms, '
+         f'alone {_fmt_ms(o["sum_image_alone_ms"])} (write mode vs plain: '
+         f'max abs err {err}, {ratio:.3g} x channel max); write mode with '
+         f'random gradients {o["write_mode_ms"]:.3f} ms, alone '
+         f'{_fmt_ms(o["write_mode_alone_ms"])}')
+
+    def reduce():
+        return backward_cuda.face_reduce(stack, fim, nf2, k6, bins)
+
+    extra['face_reduce'] = dict(
+        tile_pass_alone_ms=_kernel_device_ms(reduce, 5, 'face_reduce_tile'),
+        face_pass_alone_ms=_kernel_device_ms(reduce, 5, 'face_reduce_face'))
+    _log(f'face_reduce passes alone (profiler) on {smi}: tile pass '
+         f'{_fmt_ms(extra["face_reduce"]["tile_pass_alone_ms"])}, face pass '
+         f'{_fmt_ms(extra["face_reduce"]["face_pass_alone_ms"])}, over '
+         f'{bins["ids"].shape[0]} (tile, face) pairs')
+
     # the bounds at this shape: per-pixel inputs count where the function
     # reads them (covered pixels), the face map and the outputs everywhere
     cov = int((fim >= 0).sum())
@@ -675,19 +807,27 @@ def main():
     sweep_bytes = 4 * pixels32 + 4 * (6 + 3 + 3) * cov + 4 * 12 * pixels32
     walk = bwd.out_sweep_stats(s_rgb, fc32, fim)
     bounds['insweep'] = _bound(sweep_bytes, 0)
-    bounds['outsweep'] = _bound(sweep_bytes,
-                                SWEEP_POS_OPS * walk['positions'])
-    reduced = backward_cuda.face_reduce(stack, fim, nf2, k6)
+    # the out-sweep in accumulate mode reads the face map, xy at covered
+    # pixels and rgb + grad rgb on the lines that sweep, and reads and
+    # writes the 2 channels of each active crossing
+    bounds['outsweep'] = _bound(
+        4 * pixels32 + 4 * 6 * cov + 4 * 6 * walk['line_pixels']
+        + 2 * 2 * 4 * walk['active'], SWEEP_POS_OPS * walk['positions'])
+    reduced = reduce()
     cols = reduced.shape[1]
     bounds['face_reduce'] = _bound(
         4 * pixels32 + 4 * channels * cov + 4 * BATCH * nf2 * cols,
         channels * cov)
     _log(f'backward bounds at bs {BATCH}, {RASTER}^2, rgb: {cov} covered '
          f'pixels; out-sweep: {walk["active"]} active crossings sweeping '
-         f'{walk["positions"]} positions (out_sweep_stats, the most in one '
-         f'batch row and axis: {walk["out_crossings"]}); '
+         f'{walk["positions"]} positions x {SWEEP_POS_OPS} operations on '
+         f'{walk["sweep_lines"]} lines over {walk["line_pixels"]} pixels '
+         f'(out_sweep_stats, the most in one batch row and axis: '
+         f'{walk["out_crossings"]}); '
          + ', '.join(f'{k} {bounds[k][0]:.4f} ms by {bounds[k][1]}'
-                     for k in ('insweep', 'outsweep', 'face_reduce')))
+                     for k in ('insweep', 'outsweep', 'face_reduce'))
+         + '; the out-sweep\'s operations alone '
+         f'{_bound(0, SWEEP_POS_OPS * walk["positions"])[0]:.4f} ms')
 
     # the library side of face_reduce, from the kernel's own inputs (the
     # channel-leading stack and the face map): the K6 factors expanded to
@@ -717,7 +857,8 @@ def main():
          f'index_add_) {library["face_reduce"]:.3f} ms, of which '
          f'index_add_ alone {add_ms:.3f} ms, on {smi}; max |diff| vs the '
          f'kernel {err:.3g}')
-    del stack, maps, grads, sweep, rows, seg, sums, reduced
+    del stack, maps, grads, sweep, sweep_sum, k5, rows, seg, sums
+    del reduced
 
     # ---- 7. the main path: training steps ----
     vg = v.clone().requires_grad_()
@@ -757,6 +898,20 @@ def main():
          f'launches {launches}; max |grad| vertices '
          f'{float(vg.grad.abs().max()):.6g} textures '
          f'{float(tg.grad.abs().max()):.6g}')
+    prof = _step_profile(step, eyes)
+    if prof is None:
+        _log('training step profile: the profiler reported no device time '
+             '(not measured)')
+    else:
+        dev_ms, wall_ms, by = prof
+        step_ms = elapsed * 1e3 / len(eyes)
+        _log(f'training step profile (torch.profiler, one sweep of '
+             f'{len(eyes)} steps) on {smi}: device {dev_ms:.3f} ms per step '
+             f'(profiled wall {wall_ms:.3f} ms); against the unprofiled '
+             f'sweep\'s {step_ms:.3f} ms per step the card idles '
+             f'{100 * (1 - dev_ms / step_ms):.1f}%; per step '
+             + ', '.join(f'{k} {v:.3f} ms ({100 * v / dev_ms:.1f}%)'
+                         for k, v in by.items()))
     del vg, tg
 
     # ---- 8. a trainer ----
@@ -983,6 +1138,7 @@ def main():
         'ms': times[name][0], 'plain_ms': times[name][1],
         'bound_ms': bounds[name][0], 'bound_by': bounds[name][1],
         'library_ms': library.get(name), 'kernel_alone_ms': alone[name],
+        **extra.get(name, {}),
     } for name, (src, rep, err_k, counts) in sources.items()]}))
     _log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

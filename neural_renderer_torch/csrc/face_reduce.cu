@@ -11,88 +11,188 @@
 // g[ch], the multiply order of texture.texture_channels_cells.  At ts 2 with
 // the 12 K5 channels: 21 channels in, 36 columns out.
 //
-// What bounds it on this card.  It reads each covered pixel's channels
-// once per group of 16 output columns (the factors again from L1) and
-// writes [bs * nf, C_out]: at batch 32 on a 512^2 raster a few hundred MB
-// of reads at most, gathered rather than streamed, so latency-bound on the
-// gathers of small faces.
+// What bounds it on this card.  The bytes: each covered pixel's C channels
+// read once (at batch 32 on a 512^2 raster ~1 M covered pixels x 21 channels,
+// 85 MB), the [bs * nf, C_out] result written once, and here a partial row
+// per (tile, face) pair written and read once (~257 k pairs x 36 columns,
+// 37 MB): ~0.05 ms at 3.35 TB/s.  A face wins ~6 pixels on average, so a
+// design that gives each face a warp, or gathers a pixel's channels from C
+// scattered planes, is bound by latency instead.
 //
-// Design.  The host side (backward_cuda.py, plain PyTorch) sorts the
-// covered pixels by (batch, face) with a stable sort, so every face's
-// pixels form one run in ascending pixel order, and passes the run starts.
-// One warp per face walks its run, lane l taking pixels l, l + 32, ...;
-// each lane keeps 16 column sums in registers, adds its pixels in order,
-// and the warp reduces with a fixed shuffle tree.  No float atomics: the
-// same inputs give the same bits on every run.  There is no capacity limit
-// (the TPU kernel's row budget and kmax sentinel have no counterpart), and
-// a face that wins no pixel gets exact zeros.  Uncovered pixels are never
-// read.
+// Design: two passes, no sort of the raster and no float atomics.  The
+// forward binned the faces into per-(batch, 16x16 tile) lists in ascending
+// id order (forward_cuda.bin_faces); every covered pixel's winner is in its
+// tile's list, because the forward chose it from there.
+//   1. Tile pass, one block per (batch, tile) with a non-empty list.  Each
+//      thread owns one pixel: it finds its winner's slot k in the tile's list
+//      by binary search and stages its C channels in shared memory (rows of
+//      16 pixels, 64 B per plane; uncovered pixels read nothing).  A stable
+//      block radix sort (CUB's BlockRadixSort, a building block inside this
+//      kernel) orders the pixels by (k, pixel), so each slot's pixels are one
+//      run, which a thread per slot finds by binary search.  Then each
+//      thread keeps one output column and takes every kThreads / C_out-th
+//      slot: it sums the slot's pixels in pixel order, expanding the K6
+//      factors, into row order[start + k] of a [pairs, C_out] buffer, the
+//      pair's row in face-major order (consecutive threads write
+//      consecutive columns).
+//      Slots that won no pixel get zero rows.
+//   2. Face pass, one warp per face, lanes over columns: the sum of the
+//      face's contiguous partial rows first[f] .. first[f + 1], in tile
+//      order.  A face with no pair, or only zero rows, gets exact zeros.
+// Both orders are fixed by the inputs, so every run gives the same bits.
+// There is no capacity (the TPU kernel's row budget and kmax sentinel have no
+// counterpart).  No wgmma or TMA: there is no matrix product here (the TPU
+// kernel's one-hot contractions stood in for the scatter), and a tile's
+// staging is a few KB of row loads.
+//
+// Numerics.  The K6 products keep the plain operand order; the sums run per
+// tile in pixel order and then over the face's tiles, another order than
+// torch's index_add_, so the result is held to 1e-4 x the column's max
+// |value| (SUM_TOL of chip_smoke.py).
 
+#include <cub/block/block_radix_sort.cuh>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kCols = 16;          // output columns per pass over a run
+constexpr int kTile = 16;          // the forward's tile edge (zbuffer.cuh)
+constexpr int kThreads = kTile * kTile;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPad = kThreads + 1; // words per staged channel: lanes that
+                                   // read other channels of one pixel hit
+                                   // other banks
+
+using PixelSort = cub::BlockRadixSort<unsigned, kThreads, 1, int>;
+
+// Source channels of output column col: pass-through (ca) or the (p01, a2,
+// g) factors of an expanded K6 cell.
+__device__ __forceinline__ void column_sources(int col, int c_base, int ts,
+                                               int& ca, int& cb, int& cc) {
+  if (col < c_base) {
+    ca = col;
+    cb = -1;
+    cc = -1;
+    return;
+  }
+  const int j = col - c_base;
+  const int cell = j / 3;
+  ca = c_base + cell / ts;                        // p01[i01]
+  cb = c_base + ts * ts + cell % ts;              // a2[c2]
+  cc = c_base + ts * ts + ts + j % 3;             // g[ch]
+}
 
 __global__ void __launch_bounds__(kThreads)
-face_reduce_kernel(const float* __restrict__ stack,
-                   const int* __restrict__ order,
-                   const int* __restrict__ start, int nseg, int nf,
-                   long long plane, int C, int c_base, int ts, int c_out,
-                   float* __restrict__ out) {
+face_reduce_tile_kernel(const float* __restrict__ stack,
+                        const int* __restrict__ fim,
+                        const int* __restrict__ start,
+                        const int* __restrict__ ids,
+                        const int* __restrict__ order, int nt, int is, int C,
+                        int c_base, int ts, int c_out,
+                        float* __restrict__ partial) {
+  __shared__ PixelSort::TempStorage s_sort;
+  __shared__ unsigned s_slot[kThreads];    // the pixels' slots, sorted
+  __shared__ int s_pix[kThreads];          // and their pixels
+  __shared__ int s_lb[kThreads], s_ub[kThreads], s_row[kThreads];
+  extern __shared__ float s_val[];         // [C][kPad] staged channels
+
+  const int b = blockIdx.y;
+  const int t = blockIdx.x;                // ty * nt + tx
+  const int s0 = start[(size_t)b * nt * nt + t];
+  const int n = start[(size_t)b * nt * nt + t + 1] - s0;
+  if (n == 0) return;
+  const int tid = threadIdx.x;
+  const int y = (t / nt) * kTile + tid / kTile;
+  const int x = (t % nt) * kTile + tid % kTile;
+  const size_t plane = (size_t)is * is;
+
+  // the pixel's slot in the tile's ascending list (n: uncovered)
+  int k = n;
+  if (y < is && x < is) {
+    const int w = fim[(size_t)b * plane + (size_t)y * is + x];
+    if (w >= 0) {
+      int lo = 0, hi = n;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (ids[s0 + mid] < w) lo = mid + 1; else hi = mid;
+      }
+      k = lo;
+    }
+  }
+  const bool covered = k < n;
+  const float* src = stack + (size_t)b * C * plane + (size_t)y * is + x;
+#pragma unroll 4
+  for (int c = 0; c < C; ++c)
+    s_val[c * kPad + tid] = covered ? __ldg(src + c * plane) : 0.0f;
+  const int ncov = __syncthreads_count(covered);
+  if (ncov > 0) {
+    unsigned key[1] = {(unsigned)k};
+    int pix[1] = {tid};
+    PixelSort(s_sort).Sort(key, pix, 0, 32 - __clz(n));
+    s_slot[tid] = key[0];
+    s_pix[tid] = pix[0];
+    __syncthreads();
+  }
+
+  // the slots' rows, up to kThreads at a time: each thread finds one slot's
+  // pixels s_pix[lb .. ub), then the block sums (row, column) pairs
+  for (int base = 0; base < n; base += kThreads) {
+    const int rows = min(kThreads, n - base);
+    if (tid < rows) {
+      const int kk = base + tid;
+      int lb = 0, hi = ncov;
+      while (lb < hi) {
+        const int mid = (lb + hi) >> 1;
+        if ((int)s_slot[mid] < kk) lb = mid + 1; else hi = mid;
+      }
+      int ub = lb;
+      hi = ncov;
+      while (ub < hi) {
+        const int mid = (ub + hi) >> 1;
+        if ((int)s_slot[mid] <= kk) ub = mid + 1; else hi = mid;
+      }
+      s_lb[tid] = lb;
+      s_ub[tid] = ub;
+      s_row[tid] = order[s0 + kk];
+    }
+    __syncthreads();
+    // thread tid keeps column tid % c_out (and the next ones past kThreads)
+    // of every group-th row: consecutive threads write consecutive columns
+    const int groups = max(1, kThreads / c_out);
+    if (tid < groups * c_out) {
+      for (int col = tid % c_out; col < c_out; col += kThreads) {
+        int ca, cb, cc;
+        column_sources(col, c_base, ts, ca, cb, cc);
+        for (int kk = tid / c_out; kk < rows; kk += groups) {
+          float acc = 0.0f;
+          for (int i = s_lb[kk]; i < s_ub[kk]; ++i) {
+            const int p = s_pix[i];
+            float v = s_val[ca * kPad + p];
+            if (cb >= 0)
+              v = (v * s_val[cb * kPad + p]) * s_val[cc * kPad + p];
+            acc = acc + v;
+          }
+          partial[(size_t)s_row[kk] * c_out + col] = acc;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+face_reduce_face_kernel(const float* __restrict__ partial,
+                        const int* __restrict__ first, int nseg, int c_out,
+                        float* __restrict__ out) {
   const int seg = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
   if (seg >= nseg) return;
-  const int b = seg / nf;
-  const int begin = start[seg];
-  const int end = start[seg + 1];
-  const float* base = stack + (size_t)b * C * plane;
-  const size_t first_pixel = (size_t)b * plane;
-  const int n01 = ts * ts;
-
-  for (int col0 = 0; col0 < c_out; col0 += kCols) {
-    // source channels of this pass's columns: pass-through (ca) or
-    // (p01, a2, g) of an expanded K6 cell
-    int ca[kCols], cb[kCols], cc[kCols];
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) {
-      const int col = min(col0 + k, c_out - 1);
-      if (col < c_base) {
-        ca[k] = col; cb[k] = -1; cc[k] = -1;
-      } else {
-        const int j = col - c_base;
-        const int cell = j / 3;
-        ca[k] = c_base + cell / ts;                 // p01[i01]
-        cb[k] = c_base + n01 + cell % ts;           // a2[c2]
-        cc[k] = c_base + n01 + ts + j % 3;          // g[ch]
-      }
-    }
-    float acc[kCols];
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) acc[k] = 0.0f;
-    for (int i = begin + lane; i < end; i += 32) {
-      const float* px = base + ((size_t)order[i] - first_pixel);
-#pragma unroll
-      for (int k = 0; k < kCols; ++k) {
-        float v = __ldg(px + ca[k] * plane);
-        if (cb[k] >= 0)
-          v = (v * __ldg(px + cb[k] * plane)) * __ldg(px + cc[k] * plane);
-        acc[k] = acc[k] + v;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[k] = acc[k] + __shfl_down_sync(0xffffffffu, acc[k], off);
-    }
-    if (lane == 0) {
-      float* o = out + (size_t)seg * c_out;
-#pragma unroll
-      for (int k = 0; k < kCols; ++k)
-        if (col0 + k < c_out) o[col0 + k] = acc[k];
-    }
+  const int r0 = first[seg];
+  const int r1 = first[seg + 1];
+  for (int col = lane; col < c_out; col += 32) {
+    float acc = 0.0f;
+    for (int r = r0; r < r1; ++r)
+      acc = acc + partial[(size_t)r * c_out + col];
+    out[(size_t)seg * c_out + col] = acc;
   }
 }
 
@@ -104,13 +204,18 @@ const char* nr_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
-// stack [bs, C, is, is] contiguous; order [n] int32 flat pixel indices over
-// [bs, is, is], sorted by face; start [bs * nf + 1] int32 run starts into
-// order; out [bs * nf, c_out] with c_out = C when ts == 0, else
-// C - (ts^2 + ts + 3) + ts^3 * 3.
-int nr_face_reduce(const float* stack, const int* order, const int* start,
-                   int bs, int nf, int is, int C, int ts, float* out,
+int nr_face_reduce_tile() { return kTile; }
+
+// Launches both passes on `stream`; returns cudaGetLastError() (0 on
+// success).  stack [bs, C, is, is] contiguous; fim [bs, is, is] int32; the
+// forward's tile lists at kTile: start [bs * nt * nt + 1] and ids [pairs]
+// (ascending face ids per tile), order [pairs] (tile-major pair -> its
+// face-major row) and first [bs * nf + 1] (each face's first face-major
+// row); partial [pairs, c_out] scratch; out [bs * nf, c_out] with c_out = C
+// when ts == 0, else C - (ts^2 + ts + 3) + ts^3 * 3.
+int nr_face_reduce(const float* stack, const int* fim, const int* start,
+                   const int* ids, const int* order, const int* first, int bs,
+                   int nf, int is, int C, int ts, float* partial, float* out,
                    void* stream) {
   const int naux = ts > 0 ? ts * ts + ts + 3 : 0;
   const int c_base = C - naux;
@@ -118,12 +223,21 @@ int nr_face_reduce(const float* stack, const int* order, const int* start,
   if (c_base < 0 || c_out <= 0) return (int)cudaErrorInvalidValue;
   const int nseg = bs * nf;
   if (nseg == 0) return (int)cudaSuccess;
-  const int warps_per_block = kThreads / 32;
-  const unsigned blocks = (unsigned)((nseg + warps_per_block - 1) /
-                                     warps_per_block);
-  face_reduce_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      stack, order, start, nseg, nf, (long long)is * is, C, c_base, ts,
-      c_out, out);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nt = (is + kTile - 1) / kTile;
+  // the staged channels beside the sort's static storage may pass 48 KB
+  const size_t smem = (size_t)C * kPad * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      face_reduce_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  face_reduce_tile_kernel<<<dim3(nt * nt, bs), kThreads, smem, s>>>(
+      stack, fim, start, ids, order, nt, is, C, c_base, ts, c_out, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((nseg + kWarps - 1) / kWarps);
+  face_reduce_face_kernel<<<blocks, kThreads, 0, s>>>(partial, first, nseg,
+                                                      c_out, out);
   return (int)cudaGetLastError();
 }
 

@@ -323,7 +323,11 @@ def out_sweep_stats(settings, faces, face_index_map):
         backward.py:205-230);
       * ``active`` and ``positions``: all active crossings, and the
         positions they sweep (each from ``d1_out`` to the border): the
-        port's out-sweep work, which has no capacity and no radius."""
+        port's out-sweep work, which has no capacity and no radius;
+      * ``sweep_lines`` and ``line_pixels``: the (batch element, axis,
+        line) that hold an active crossing, and the pixels that lie on at
+        least one of them: what the out-sweep must read of the value and
+        gradient planes."""
     bs = faces.shape[0]
     is_ = settings.image_size
     covered = face_index_map >= 0
@@ -332,6 +336,7 @@ def out_sweep_stats(settings, faces, face_index_map):
     ppy = geometry.to_pixel_coords(face_w[..., 1], is_)
     yi, xi = _pixel_grid(bs, is_, faces.device)
     rows = [0, 0]                      # per axis [bs, is], summed over edges
+    lines = [False, False]             # per axis [bs, is]: the line sweeps
     offset, active, positions = 0.0, 0, 0
     for e, a in _EA:
         X, Y = _edge_coords(ppx, ppy, e, a)
@@ -341,16 +346,21 @@ def out_sweep_stats(settings, faces, face_index_map):
         valid = covered & cr['valid']
         act = valid & (cr['d1_in'] == d1)
         rows[a] = rows[a] + act.sum(dim=2)
+        # axis 0 sweeps the column x (= d0), axis 1 the row y
+        lines[a] = lines[a] | act.any(dim=1 if a == 0 else 2)
         off = torch.where(valid, torch.abs(cr['d1_out'] - d1), 0.0)
         offset = max(offset, float(off.max()))
         span = torch.where(cr['direction'] > 0, is_ - cr['d1_out'],
                            cr['d1_out'] + 1.0)
         active += int(act.sum())
         positions += int(span[act].sum())
+    cols, rws = lines[0].sum(1), lines[1].sum(1)
     return dict(
         out_crossings=max(int(r.sum(1).max()) for r in rows),
         row_crossings=max(int(r.max()) for r in rows),
-        out_offset=offset, active=active, positions=positions)
+        out_offset=offset, active=active, positions=positions,
+        sweep_lines=int((cols + rws).sum()),
+        line_pixels=int(((cols + rws) * is_ - cols * rws).sum()))
 
 
 def count_out_crossings(settings, faces, face_index_map, per_row=False):

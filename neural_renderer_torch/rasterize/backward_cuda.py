@@ -10,7 +10,8 @@ the card:
     added to the in-sweep's channels;
   * ``face_reduce`` (``csrc/face_reduce.cu``, replaces ``backward_pallas.
     _csr_kernel`` and its segment_sum): per-face sums of the fused
-    per-pixel channel stack, K6 factors expanded to texture cells.
+    per-pixel channel stack, K6 factors expanded to texture cells, per
+    (tile, face) pair of the forward's tile lists and then per face.
 
 Each wrapper sends a CPU tensor to its plain PyTorch version
 (``insweep_plain``, ``outsweep_plain``, ``face_reduce_plain``) and a CUDA
@@ -20,9 +21,10 @@ tensor to its kernel, which it launches or raises; any other device raises.
 The sweeps read the forward's maps as the CUDA forward writes them: ``xy``
 ``[bs, 6, is, is]`` (the winner's NDC x0 y0 x1 y1 x2 y2), ``face_index_map``
 ``[bs, is, is]`` int32, and value/gradient planes ``rgb``, ``grad_rgb``
-``[bs, 3, is, is]`` (the *composited* rgb) and ``grad_alpha``
-``[bs, is, is]``.  Alpha is the coverage of ``face_index_map``.  Which terms
-enter follows ``settings.return_rgb`` / ``return_alpha``.
+``[bs, 3, is, is]`` (the *composited* rgb; any strides, so the permuted
+NHWC maps go in as they are) and ``grad_alpha`` ``[bs, is, is]``.  Alpha
+is the coverage of ``face_index_map``.  Which terms enter follows
+``settings.return_rgb`` / ``return_alpha``.
 """
 
 import ctypes
@@ -45,7 +47,9 @@ def _sweeps():
     lib = _build.load('backward_sweeps')
     ptr, i32, f32, i64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_longlong)
-    common = [ptr, ptr, ptr, ptr, ptr, i32, i32, f32, ptr, i64]
+    strides = ctypes.POINTER(i64)
+    common = [ptr, ptr, ptr, strides, ptr, strides, ptr, i32, i32, f32, ptr,
+              i64]
     lib.nr_insweep.argtypes = common + [ptr]
     lib.nr_insweep.restype = i32
     lib.nr_outsweep.argtypes = common + [i32, ptr]
@@ -57,12 +61,13 @@ def _sweeps():
 
 @functools.cache
 def _reduce():
-    """The face-reduction kernel's library, built at first use."""
+    """The face-reduction kernels' library, built at first use."""
     lib = _build.load('face_reduce')
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.nr_face_reduce.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                                   ptr, ptr]
+    lib.nr_face_reduce.argtypes = [ptr] * 6 + [i32] * 5 + [ptr] * 3
     lib.nr_face_reduce.restype = i32
+    lib.nr_face_reduce_tile.argtypes = []
+    lib.nr_face_reduce_tile.restype = i32
     lib.nr_error_string.argtypes = [i32]
     lib.nr_error_string.restype = ctypes.c_char_p
     return lib
@@ -70,6 +75,11 @@ def _reduce():
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _strides(t):
+    """A map's 4 element strides as a C array (None for no map)."""
+    return None if t is None else (ctypes.c_longlong * 4)(*t.stride())
 
 
 def _stream(t):
@@ -113,14 +123,25 @@ def _check_out(out, bs, is_):
                          f'strides {out.stride()}')
 
 
-def _sweep_args(settings, xy, face_index_map, rgb, grad_rgb, grad_alpha):
-    """Contiguous kernel operands (None for the terms not drawn)."""
-    rgb_on = settings.return_rgb
-    alpha_on = settings.return_alpha
-    return (xy.contiguous(), face_index_map.contiguous(),
-            rgb.contiguous() if rgb_on else None,
-            grad_rgb.contiguous() if rgb_on else None,
-            grad_alpha.contiguous() if alpha_on else None)
+def _launch_sweep(name, settings, xy, face_index_map, rgb, grad_rgb,
+                  grad_alpha, out, *extra):
+    """Launch ``nr_<name>`` into ``out``.  rgb and grad rgb go in their own
+    layout (any strides: the permuted NHWC maps need no copy); the other
+    maps as dense tensors; None for the terms not drawn."""
+    lib = _sweeps()
+    bs, is_ = face_index_map.shape[0], settings.image_size
+    if not settings.return_rgb:
+        rgb = grad_rgb = None
+    xy, fim = xy.contiguous(), face_index_map.contiguous()
+    ga = grad_alpha.contiguous() if settings.return_alpha else None
+    with torch.cuda.device(xy.device):
+        rc = getattr(lib, f'nr_{name}')(
+            xy.data_ptr(), fim.data_ptr(), _ptr(rgb), _strides(rgb),
+            _ptr(grad_rgb), _strides(grad_rgb), _ptr(ga), bs, is_,
+            settings.eps, out.data_ptr(), out.stride(0), *extra, _stream(xy))
+    _raise_on(lib, rc, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def _plain_maps(settings, xy, face_index_map):
@@ -163,15 +184,8 @@ def insweep(settings, xy, face_index_map, rgb=None, grad_rgb=None,
     if out is None:
         out = torch.empty((bs, 12, is_, is_), dtype=torch.float32,
                           device=xy.device)
-    lib = _sweeps()
-    args = _sweep_args(settings, xy, face_index_map, rgb, grad_rgb,
-                       grad_alpha)
-    with torch.cuda.device(xy.device):
-        rc = lib.nr_insweep(*map(_ptr, args), bs, is_, settings.eps,
-                            out.data_ptr(), out.stride(0), _stream(xy))
-    _raise_on(lib, rc, 'insweep')
-    LAUNCHES['insweep'] += 1
-    return out
+    return _launch_sweep('insweep', settings, xy, face_index_map, rgb,
+                         grad_rgb, grad_alpha, out)
 
 
 def outsweep(settings, xy, face_index_map, rgb=None, grad_rgb=None,
@@ -179,7 +193,10 @@ def outsweep(settings, xy, face_index_map, rgb=None, grad_rgb=None,
     """K5 out-sweep channels ``[bs, 12, is, is]``.  With ``out`` (a
     ``[bs, 12, is, is]`` view with dense planes) the result is written
     there, or with ``accumulate`` added to it (``out + sweep``, as the JAX
-    package adds the out-sweep to the in-sweep)."""
+    package adds the out-sweep to the in-sweep).  The kernel keeps a line's
+    planes and crossing list in shared memory, 92 bytes per pixel of the
+    line with rgb and alpha drawn, so it takes ``is <= 2504`` on an
+    H100."""
     _check_sweep_inputs(settings, xy, face_index_map, rgb, grad_rgb,
                         grad_alpha)
     bs, is_ = face_index_map.shape[0], settings.image_size
@@ -196,16 +213,8 @@ def outsweep(settings, xy, face_index_map, rgb=None, grad_rgb=None,
     if out is None:
         out = torch.empty((bs, 12, is_, is_), dtype=torch.float32,
                           device=xy.device)
-    lib = _sweeps()
-    args = _sweep_args(settings, xy, face_index_map, rgb, grad_rgb,
-                       grad_alpha)
-    with torch.cuda.device(xy.device):
-        rc = lib.nr_outsweep(*map(_ptr, args), bs, is_, settings.eps,
-                             out.data_ptr(), out.stride(0), int(accumulate),
-                             _stream(xy))
-    _raise_on(lib, rc, 'outsweep')
-    LAUNCHES['outsweep'] += 1
-    return out
+    return _launch_sweep('outsweep', settings, xy, face_index_map, rgb,
+                         grad_rgb, grad_alpha, out, int(accumulate))
 
 
 def _expanded_width(C, ts):
@@ -238,32 +247,41 @@ def face_reduce_plain(stack, face_index_map, nf, ts=0):
     return out.index_add_(0, seg, rows)[:-1]
 
 
-def face_runs(face_index_map, nf):
-    """Every face's pixels as one run: (order, start), both int32.
+def _check_bins(bins, bs, nf, is_, tile, device):
+    """The forward's tile lists (``forward_cuda.bin_faces`` at the kernel's
+    tile size): int32 tensors on ``device`` of matching lengths."""
+    if bins is None:
+        raise ValueError('face_reduce on the card needs bins, the forward\'s '
+                         'tile lists (forward_shaded(...)["bins"])')
+    if bins['tile'] != tile:
+        raise ValueError(f'bins were made for {bins["tile"]}-pixel tiles; '
+                         f'the kernel reduces {tile}-pixel tiles')
+    nt = -(-is_ // tile)
+    pairs = bins['ids'].shape[0]
+    want = {'start': bs * nt * nt + 1, 'ids': pairs, 'order': pairs,
+            'first': bs * nf + 1}
+    for name, length in want.items():
+        t = bins[name]
+        if (t.dtype != torch.int32 or tuple(t.shape) != (length,)
+                or t.device != device):
+            raise ValueError(f'bins[{name!r}] must be int32 ({length},) on '
+                             f'{device}; got {t.dtype} {tuple(t.shape)} on '
+                             f'{t.device}')
 
-    ``order`` lists the flat pixel indices of ``face_index_map``
-    ``[bs, is, is]`` sorted by segment (``backward.face_segments``; a stable
-    sort keeps each run in ascending pixel order, uncovered pixels last) and
-    face ``s`` of ``[bs * nf]`` owns ``order[start[s]:start[s + 1]]``.  The
-    run starts come from a binary search of the sorted segments, not a
-    histogram, whose uncovered bin would take most pixels' atomic adds."""
-    bs = face_index_map.shape[0]
-    seg = bwd.face_segments(face_index_map, nf).reshape(-1).to(torch.int32)
-    sorted_seg, order = torch.sort(seg, stable=True)
-    start = torch.searchsorted(
-        sorted_seg, torch.arange(bs * nf + 1, dtype=torch.int32,
-                                 device=seg.device), out_int32=True)
-    return order.to(torch.int32), start
 
-
-def face_reduce(stack, face_index_map, nf, ts=0):
+def face_reduce(stack, face_index_map, nf, ts=0, bins=None):
     """Per-face sums ``[bs * nf, C_out]`` of the channel stack
     ``[bs, C, is, is]`` over the pixels each face won.  With ``ts`` > 0 the
     last ``ts^2 + ts + 3`` channels are K6 factors
     (``texture.texture_cell_factors``), expanded to ``ts^3 * 3`` cell
     columns in cube order, so ``C_out = C - (ts^2 + ts + 3) + ts^3 * 3``.
     Faces that win no pixel get exact zeros; uncovered pixels are skipped.
-    Deterministic on the card: no float atomics."""
+
+    ``bins``: the forward's tile lists (``forward_shaded(...)['bins']``:
+    ``tile``, ``start``, ``ids``, ``order``, ``first``), which hold every
+    covered pixel's winner.  Required on the card, where the kernel sums
+    each (tile, face) pair and then each face's pairs, deterministically
+    (no float atomics, no sort of the raster); ignored on the CPU."""
     bs, C, is_ = stack.shape[0], stack.shape[1], stack.shape[2]
     if (stack.dtype != torch.float32 or stack.ndim != 4
             or stack.shape[3] != is_
@@ -280,14 +298,19 @@ def face_reduce(stack, face_index_map, nf, ts=0):
     if bs * is_ * is_ >= 2 ** 31 or bs * nf >= 2 ** 31:
         raise ValueError('face_reduce indexes pixels and faces with int32')
     lib = _reduce()
+    _check_bins(bins, bs, nf, is_, lib.nr_face_reduce_tile(), stack.device)
     stack = stack.contiguous()
-    order, start = face_runs(face_index_map, nf)
+    fim = face_index_map.contiguous()
+    partial = torch.empty((bins['ids'].shape[0], c_out), dtype=torch.float32,
+                          device=stack.device)
     out = torch.empty((bs * nf, c_out), dtype=torch.float32,
                       device=stack.device)
     with torch.cuda.device(stack.device):
-        rc = lib.nr_face_reduce(stack.data_ptr(), order.data_ptr(),
-                                start.data_ptr(), bs, nf, is_, C, ts,
-                                out.data_ptr(), _stream(stack))
+        rc = lib.nr_face_reduce(
+            stack.data_ptr(), fim.data_ptr(),
+            *(bins[k].data_ptr() for k in ('start', 'ids', 'order', 'first')),
+            bs, nf, is_, C, ts, partial.data_ptr(), out.data_ptr(),
+            _stream(stack))
     _raise_on(lib, rc, 'face_reduce')
     LAUNCHES['face_reduce'] += 1
     return out

@@ -11,9 +11,10 @@ background gradient.
 The backward builds one channel-leading per-pixel stack ``[bs, C, is, is]``:
 the 12 K5 channels (in-sweep, then the out-sweep added in place), the 9 K7
 channels when depth is drawn, and the ``ts^2 + ts + 3`` K6 factor channels
-for ``ts <= 4``.  One per-face reduction (``backward_cuda.face_reduce``)
-sums it, expanding the factors to texture cells, and the K5 sums are mapped
-to vertex slots by ``scatter_pixel_channels``.  Only what
+for ``ts <= 4``.  One per-face reduction (``backward_cuda.face_reduce``,
+which on the card sums by the forward's tile lists) sums it, expanding the
+factors to texture cells, and the K5 sums are mapped to vertex slots by
+``scatter_pixel_channels``.  Only what
 ``ctx.needs_input_grad`` asks for is computed, and a forward that needs no
 gradient saves nothing.
 
@@ -129,6 +130,8 @@ def channel_stack(settings, maps, g_rgb, g_alpha, g_depth, k5, k7, k6_ts):
 
 
 _SAVED = ('face_index_map', 'weights', 'depth_map', 'xy', 'z', 'rgb')
+# the forward kernel's tile lists, which the reduction on the card needs
+_BINS = ('start', 'ids', 'order', 'first')
 
 
 class RasterizeCore(torch.autograd.Function):
@@ -148,13 +151,19 @@ class RasterizeCore(torch.autograd.Function):
         if any(ctx.needs_input_grad):
             # alpha is the coverage of face_index_map
             out['rgb'] = rgb if settings.return_rgb else None
-            ctx.save_for_backward(*(out[k] for k in _SAVED))
+            bins = out.get('bins')
+            ctx.tile = bins['tile'] if bins else None
+            ctx.save_for_backward(*(out[k] for k in _SAVED),
+                                  *(bins[k] if bins else None for k in _BINS))
         return rgb, alpha, depth
 
     @staticmethod
     def backward(ctx, g_rgb, g_alpha, g_depth):
         s = ctx.settings
-        maps = dict(zip(_SAVED, ctx.saved_tensors))
+        saved = ctx.saved_tensors
+        maps = dict(zip(_SAVED, saved))
+        bins = (dict(zip(_BINS, saved[len(_SAVED):]), tile=ctx.tile)
+                if ctx.tile else None)
         fim = maps['face_index_map']
         face_shape, tex_shape, bg_shape = ctx.shapes
         _, need_faces, need_tex, need_bg = ctx.needs_input_grad
@@ -170,7 +179,7 @@ class RasterizeCore(torch.autograd.Function):
         if k5 or k7 or k6_ts:
             stack = channel_stack(s, maps, g_rgb, g_alpha, g_depth, k5, k7,
                                   k6_ts)
-            sums = backward_cuda.face_reduce(stack, fim, nf, k6_ts)
+            sums = backward_cuda.face_reduce(stack, fim, nf, k6_ts, bins)
 
         grad_faces = grad_textures = grad_bg = None
         if need_faces:

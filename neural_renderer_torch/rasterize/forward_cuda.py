@@ -23,7 +23,9 @@ does them in XLA (``forward_pallas._feature_table``, ``_face_tile_ranges``):
     which the z test rejects);
   * ``bin_faces``: every front face goes to each screen tile its
     conservative pixel bbox (``+-1`` pad) overlaps, in ascending face order,
-    as CSR lists (``start`` offsets + face ``ids``).
+    as CSR lists (``start`` offsets + face ``ids``), with the pairs'
+    face-major order (``order``, ``first``) for the backward's per-face
+    reduction.
 
 The kernels (``csrc/forward_shaded.cu``, ``csrc/forward_index.cu``) render
 one tile per block and loop over any list length, so there is no capacity
@@ -135,11 +137,16 @@ def _face_tile_ranges(settings, faces, tile):
 
 
 def bin_faces(settings, faces, tile):
-    """CSR tile lists: (start [bs*nt*nt + 1] int32, ids [total] int32).
+    """CSR tile lists: (start [bs*nt*nt + 1], ids [pairs], order [pairs],
+    first [bs*nf + 1]), all int32.
 
     Tile ``(b, ty, tx)`` (row-major, ``nt = ceil(is / tile)``) holds the
-    front faces ``ids[start[t]:start[t + 1]]`` in ascending order.  Reading
-    the list total back to the host syncs the device once.
+    front faces ``ids[start[t]:start[t + 1]]`` in ascending order.  The
+    (tile, face) pairs are made face-major (each face's tiles in row-major
+    order) and sorted tile-major: tile-major pair ``i`` is face-major pair
+    ``order[i]``, and face ``s`` of ``[bs * nf]`` owns the face-major pairs
+    ``first[s]:first[s + 1]``.  Reading the pair total back to the host
+    syncs the device once.
     """
     bs, nf = faces.shape[:2]
     nt = -(-settings.image_size // tile)
@@ -152,9 +159,11 @@ def bin_faces(settings, faces, tile):
     if total >= 2 ** 31:
         raise ValueError(f'{total} (tile, face) pairs overflow int32 offsets')
     # one entry per (face, covered tile), faces ascending
+    first = torch.zeros(bs * nf + 1, dtype=torch.int64, device=dev)
+    first[1:] = torch.cumsum(n, 0)
     fid = torch.repeat_interleave(torch.arange(bs * nf, device=dev), n,
                                   output_size=total)
-    j = torch.arange(total, device=dev) - (torch.cumsum(n, 0) - n)[fid]
+    j = torch.arange(total, device=dev) - first[fid]
     nxf = nx.reshape(-1)[fid]
     ty = ty0.reshape(-1)[fid] + torch.div(j, nxf, rounding_mode='floor')
     tx = tx0.reshape(-1)[fid] + j % nxf
@@ -164,7 +173,7 @@ def bin_faces(settings, faces, tile):
     ids = (fid[order] % nf).to(torch.int32)
     start = torch.zeros(bs * nt * nt + 1, dtype=torch.int32, device=dev)
     start[1:] = torch.cumsum(torch.bincount(key, minlength=bs * nt * nt), 0)
-    return start, ids
+    return start, ids, order.to(torch.int32), first.to(torch.int32)
 
 
 def _check(settings, faces, textures):
@@ -192,7 +201,9 @@ def forward_shaded(settings, faces, textures=None):
     [bs,is,is] (``far`` uncovered), weights [bs,3,is,is], xy [bs,6,is,is]
     (the winner's NDC x0 y0 x1 y1 x2 y2), z [bs,3,is,is], and rgb
     [bs,3,is,is] (uncomposited) when ``textures`` [bs,nf,ts,ts,ts,3] is
-    given; zeros where uncovered.
+    given; zeros where uncovered.  On the card also ``bins``, the kernel's
+    tile lists (``bin_faces``: dict(tile, start, ids, order, first)), which
+    ``backward_cuda.face_reduce`` reduces by.
 
     A CUDA tensor runs the kernel, which shades ``2 <= ts <= 4`` (a larger
     cube is shaded by ``texture.sample_textures`` after this call, as in the
@@ -217,7 +228,7 @@ def forward_shaded(settings, faces, textures=None):
                xy=empty(bs, 6, is_, is_), z=empty(bs, 3, is_, is_))
     if textures is not None:
         out['rgb'] = empty(bs, 3, is_, is_)
-    _launch_binned(
+    out['bins'] = _launch_binned(
         _kernel(), 'forward_shaded', settings, faces, [_ptr(texc)],
         [ts, settings.near, settings.far, ts - 1 - settings.eps],
         [out['face_index_map'], out['depth_map'], out['weights'], out['xy'],
@@ -234,11 +245,13 @@ def _launch_binned(lib, name, settings, faces, inputs, scalars, outputs):
     ``nr_<name>(records, start, ids, *inputs, bs, nf, is, *scalars,
     *outputs, stream)``, with the per-face records and the CSR tile lists
     made here at the kernel's tile size.  Raises if the launch fails;
-    counts it in ``LAUNCHES`` otherwise."""
+    counts it in ``LAUNCHES`` otherwise.  Returns the tile lists:
+    dict(tile, start, ids, order, first) of ``bin_faces``."""
     faces = faces.contiguous()
     bs, nf = faces.shape[:2]
     rec = _face_records(settings, faces)
-    start, ids = bin_faces(settings, faces, getattr(lib, f'nr_{name}_tile')())
+    tile = getattr(lib, f'nr_{name}_tile')()
+    start, ids, order, first = bin_faces(settings, faces, tile)
     with torch.cuda.device(faces.device):
         rc = getattr(lib, f'nr_{name}')(
             rec.data_ptr(), start.data_ptr(), ids.data_ptr(), *inputs,
@@ -248,6 +261,7 @@ def _launch_binned(lib, name, settings, faces, inputs, scalars, outputs):
         raise RuntimeError(f'{name} kernel launch failed: '
                            + lib.nr_error_string(rc).decode())
     LAUNCHES[name] += 1
+    return dict(tile=tile, start=start, ids=ids, order=order, first=first)
 
 
 def forward_shaded_plain(settings, faces, textures=None):

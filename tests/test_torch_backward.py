@@ -13,7 +13,8 @@ azimuths) with random value and gradient maps from a numpy seed:
     and the K7 channels against ``depth_channels``: rtol 1e-6, atol 1e-7 x
     max (the same operations in the same order);
   * ``face_reduce_plain`` against ``jax.ops.segment_sum``: rtol 1e-5, atol
-    1e-6 x max (sum order);
+    1e-6 x max (sum order), and the tile-pair bookkeeping of the card's
+    reduction against ``face_reduce_plain`` at the same tolerance;
   * the exact background gradient against ``jax.grad``: rtol 1e-5;
   * the four hard-coded gradient cases (rtol 1e-2, atol 1e-5, the
     reference's own) and the float64 K5 pipeline of test_grad_parity64
@@ -30,7 +31,7 @@ import neural_renderer_torch as nt
 import neural_renderer_tpu as nr
 import utils
 from neural_renderer_torch.rasterize import backward as tbwd
-from neural_renderer_torch.rasterize import backward_cuda
+from neural_renderer_torch.rasterize import backward_cuda, forward_cuda
 from neural_renderer_torch.rasterize import geometry as tgeo
 from neural_renderer_torch.rasterize import texture as ttex
 from neural_renderer_torch.rasterize.config import RasterizeSettings as TSet
@@ -216,6 +217,23 @@ def test_k7_channels_match_jax(scene):
     _close(got, want, 1e-6, 1e-7)
 
 
+def _reduce_stack(sc, ts):
+    """A random 12-channel stack, with the scene's K6 factors appended for
+    ts > 0: (stack, its rows with the factors expanded to cells)."""
+    rng = np.random.RandomState(ts)
+    base = rng.normal(0, 1, (2, 12, IS, IS)).astype(np.float32)
+    if not ts:
+        return base, base
+    fac = ttex.texture_cell_factors(
+        TSet(image_size=IS, eps=EPS), torch.as_tensor(sc['fim']),
+        torch.as_tensor(sc['z']), torch.as_tensor(sc['weights']),
+        torch.as_tensor(sc['depth']),
+        torch.as_tensor(sc['grgb']).permute(0, 3, 1, 2), ts).numpy()
+    return (np.concatenate([base, fac], axis=1),
+            np.concatenate([base, ttex.texture_channels_cells(
+                torch.as_tensor(fac), ts).numpy()], axis=1))
+
+
 @pytest.mark.parametrize('ts', [0, 2, 4])
 def test_face_reduce_plain_matches_segment_sum(scene, ts):
     """Per-face sums (K6 factors expanded for ts > 0) against
@@ -223,19 +241,7 @@ def test_face_reduce_plain_matches_segment_sum(scene, ts):
     exact zeros."""
     sc = scene
     nf = sc['faces'].shape[1]
-    rng = np.random.RandomState(ts)
-    base = rng.normal(0, 1, (2, 12, IS, IS)).astype(np.float32)
-    if ts:
-        fac = ttex.texture_cell_factors(
-            TSet(image_size=IS, eps=EPS), torch.as_tensor(sc['fim']),
-            torch.as_tensor(sc['z']), torch.as_tensor(sc['weights']),
-            torch.as_tensor(sc['depth']),
-            torch.as_tensor(sc['grgb']).permute(0, 3, 1, 2), ts).numpy()
-        stack = np.concatenate([base, fac], axis=1)
-        rows = np.concatenate([base, ttex.texture_channels_cells(
-            torch.as_tensor(fac), ts).numpy()], axis=1)
-    else:
-        stack = rows = base
+    stack, rows = _reduce_stack(sc, ts)
     got = backward_cuda.face_reduce_plain(
         torch.as_tensor(stack), torch.as_tensor(sc['fim']), nf, ts).numpy()
     seg = np.asarray(jbwd.face_segments(None, jnp.zeros((2, nf)),
@@ -250,22 +256,69 @@ def test_face_reduce_plain_matches_segment_sum(scene, ts):
     assert (~won).sum() > 0 and np.all(got[~won] == 0)
 
 
-def test_face_runs_list_every_face_pixels(scene):
-    """The kernel's pixel runs (plain torch, run before the launch): face s
-    owns exactly its pixels, ascending; uncovered pixels own no run."""
-    fim = scene['fim']
-    nf = scene['faces'].shape[1]
-    order, start = backward_cuda.face_runs(torch.as_tensor(fim), nf)
-    order, start = order.numpy(), start.numpy()
-    flat = fim.reshape(-1)
-    seg = np.where(flat >= 0, np.repeat(np.arange(2), IS * IS) * nf + flat,
-                   2 * nf)
-    assert start[0] == 0 and start[-1] == (flat >= 0).sum()
-    for s in np.unique(seg[seg < 2 * nf]):
-        np.testing.assert_array_equal(order[start[s]:start[s + 1]],
-                                      np.flatnonzero(seg == s))
-    lengths = np.diff(start)
-    assert (lengths == 0).sum() == 2 * nf - len(np.unique(seg[seg < 2 * nf]))
+@pytest.mark.parametrize('ts', [0, 2])
+def test_tile_pairs_sum_to_face_reduce(scene, ts):
+    """The card's reduction bookkeeping, on CPU tensors: the forward's tile
+    lists (``bin_faces`` at the kernel's 16-pixel tile) hold every covered
+    pixel's winner, the slot ``torch.searchsorted`` finds in the tile's
+    list points back at it, and the plain two-level sum (pixels into the
+    partial rows ``order[start[t] + k]``, then each face's rows
+    ``first[f]:first[f + 1]``) equals ``face_reduce_plain``."""
+    sc = scene
+    bs, nf = sc['faces'].shape[:2]
+    tile = 16
+    nt_ = IS // tile
+    start, ids, order, first = forward_cuda.bin_faces(
+        TSet(image_size=IS, eps=EPS), torch.as_tensor(sc['faces']), tile)
+    assert start.dtype == ids.dtype == order.dtype == first.dtype \
+        == torch.int32
+    assert first.shape == (bs * nf + 1,) and int(first[-1]) == ids.shape[0]
+    fim = torch.as_tensor(sc['fim'])
+    covered = fim >= 0
+    yy, xx = torch.meshgrid(torch.arange(IS), torch.arange(IS),
+                            indexing='ij')
+    t = ((torch.arange(bs)[:, None, None] * nt_ + yy // tile) * nt_
+         + xx // tile)[covered]
+    winner = fim[covered].long()
+    # tile-major pairs in ascending (tile, face) order: one search finds
+    # each pixel's slot in its own tile's list
+    pair_tile = torch.repeat_interleave(torch.arange(bs * nt_ * nt_),
+                                        torch.diff(start.long()))
+    pos = torch.searchsorted(pair_tile * nf + ids.long(), t * nf + winner)
+    k = pos - start.long()[t]
+    assert bool((k >= 0).all()) and bool((pos < start.long()[t + 1]).all())
+    assert bool((ids.long()[start.long()[t] + k] == winner).all())
+    assert covered.sum() > 500
+
+    stack, rows = _reduce_stack(sc, ts)
+    rows = torch.as_tensor(rows).permute(0, 2, 3, 1)[covered]
+    partial = torch.zeros((ids.shape[0], rows.shape[1])).index_add_(
+        0, order.long()[start.long()[t] + k], rows)
+    face_of_row = torch.repeat_interleave(torch.arange(bs * nf),
+                                          torch.diff(first.long()))
+    got = torch.zeros((bs * nf, rows.shape[1])).index_add_(0, face_of_row,
+                                                           partial)
+    want = backward_cuda.face_reduce_plain(torch.as_tensor(stack), fim, nf,
+                                           ts)
+    _close(got.numpy(), want.numpy(), 1e-5, 1e-6)
+    assert np.abs(want.numpy()).max() > 0
+
+
+@pytest.mark.parametrize('sweep', ['insweep', 'outsweep'])
+def test_sweeps_take_permuted_nhwc_views(scene, sweep):
+    """rgb and grad rgb go in as the permuted NHWC views that
+    ``core._k5_stack`` passes, with the results of contiguous inputs."""
+    ts_, _ = _settings('rgb+alpha')
+    sc = scene
+    t = torch.as_tensor
+    rgb, grgb = (t(sc[k]).permute(0, 3, 1, 2) for k in ('rgb', 'grgb'))
+    assert not rgb.is_contiguous() and not grgb.is_contiguous()
+    fn = getattr(backward_cuda, sweep)
+    got = fn(ts_, t(sc['xy']), t(sc['fim']), rgb, grgb, t(sc['galpha']))
+    want = fn(ts_, t(sc['xy']), t(sc['fim']), rgb.contiguous(),
+              grgb.contiguous(), t(sc['galpha']))
+    assert np.abs(want.numpy()).max() > 0
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 @pytest.mark.parametrize('per_batch', [False, True])

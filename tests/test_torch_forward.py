@@ -121,7 +121,7 @@ def test_binning_holds_every_winner(scene, image_size, tile):
              else _teapot_faces(image_size))
     s = TSet(image_size=image_size, eps=1e-3)
     fim, _ = forward_dense.forward_face_index_map(s, faces)
-    start, ids = forward_cuda.bin_faces(s, faces, tile)
+    start, ids, _, _ = forward_cuda.bin_faces(s, faces, tile)
     nt_ = -(-image_size // tile)
     bs = faces.shape[0]
     assert start.shape == (bs * nt_ * nt_ + 1,)
