@@ -4,18 +4,24 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero; progress goes to stdout):
   1. the card: ``torch.cuda.is_available()``, name and power limit;
-  2. build the CUDA kernels from ``neural_renderer_torch/csrc`` (four
-     sources, five kernels; one nvcc each, all started together) and print
-     ptxas' register and shared-memory report;
+  2. build the CUDA kernels from ``neural_renderer_torch/csrc`` (five
+     sources: the five TPU kernels' counterparts and the forward's setup
+     and binning; one nvcc each, all started together) and print ptxas'
+     register and shared-memory report;
   3. the forward kernel against its plain PyTorch version on the card,
      inputs from ``--seed``: random 64^2 scenes (no textures, ts 2/3/4) and
      the teapot at a 512^2 raster (bs 4 ts 2, the golden batch at ts 4, and
      the main path's bs 32 ts 2); face_index_map must match exactly, the
      other maps within the stated tolerances; both timed at the main path's
-     shape;
+     shape.  On every scene the device setup and binning
+     (``forward_cuda.bin_setup``) against ``_face_records``,
+     ``_index_records`` and ``bin_faces``: records bit-equal, ``start``,
+     ``ids``, ``order`` and ``first`` equal, repeat runs bitwise equal;
+     timed alone at the main path's shape;
   4. the forward-only path: ``Renderer().render`` on the teapot at batch 32,
      256^2 with anti-aliasing (512^2 raster), ts 2, over the 8 bench
-     azimuths, counting kernel launches;
+     azimuths, counting kernel launches, then one more sweep under
+     torch.profiler for the device operations per forward call;
   5. the golden check: the reference off-axis view (eye [1, 1, -2.7]) at ts
      4 against ``tests/data/teapot_aa_rgb_fingerprint.npz`` (atol 1e-5);
   6. the backward kernels against their plain versions on the card: random
@@ -34,8 +40,8 @@ Phases (any failure exits non-zero; progress goes to stdout):
      with respect to vertices and textures, at batch 32, 256^2 AA, ts 2,
      one step per bench azimuth after one warm-up step, counting launches
      of every kernel (at least one per kernel per step), then one more
-     sweep under torch.profiler: device time per step, the card's idle
-     share and the kernels' device times;
+     sweep under torch.profiler: device time and device operations per
+     step, the card's idle share and the kernels' device times;
   8. a trainer: a ``Mesh`` of the teapot (ts 2), built on the card by
      ``Mesh.from_obj`` itself, fitted by ``Adam`` for 10 steps at batch 32
      (the 8 azimuths x 4), 256^2 AA, L2 against renders of a shifted mesh;
@@ -49,19 +55,20 @@ Phases (any failure exits non-zero; progress goes to stdout):
      random 64^2 scenes (plain, with coincident duplicated faces, with
      degenerate faces), the teapot at 512^2 bs 4, the golden batch and the
      main shape (bs 32, 512^2); 0 index mismatches, a bit-equal depth plane
-     and bitwise-equal repeat runs; timed at the main shape;
+     and bitwise-equal repeat runs, and the setup and binning checked as in
+     phase 3; timed at the main shape, alone and as a call;
  11. the tune path at full width, the JAX bench's tuned workload:
      ``tune`` on the teapot at batch 32, 256^2 AA, ts 2, over the 8 bench
      azimuths with ``margin=1.0`` (at least one index-kernel launch per
      azimuth); its dict must cover ``measure_scene`` of every azimuth;
      ``measure=True`` must return {} and leave ``perf_overrides`` as it was;
  12. a large mesh: the 163,840-face icosphere (subdiv 6, fill_back), the
-     index kernel against its plain version at bs 1 on 512^2 (0
-     mismatches), then a ``render_silhouettes`` training step at batch 4,
-     256^2 AA, over the 8 azimuths: every kernel launches, the vertex
-     gradient is finite and non-zero, images/s printed.
+     setup and binning and the index kernel against their plain versions at
+     bs 1 on 512^2 (0 mismatches), then a ``render_silhouettes`` training
+     step at batch 4, 256^2 AA, over the 8 azimuths: every kernel launches,
+     the vertex gradient is finite and non-zero, images/s printed.
 
-The last stdout line is the JSON device record; the line before it lists each
+The last stdout line is the JSON device record.  The line before it lists each
 of the five kernels with its launches on its path (phase 7 for the first four,
 phase 11 for the index kernel), its worst error against the plain version,
 its time and the plain version's, its bound (the larger of the bytes it must
@@ -70,7 +77,9 @@ this run's inputs) and the library side's time where PyTorch has a call for
 the function's core: for the per-face reduction, its K6 expansion, the
 covered rows' gather and one ``index_add_``, from the kernel's own inputs.
 The out-sweep's and the reduction's entries also carry the other timings of
-phase 6.
+phase 6.  The line before that gives the setup and binning (not a TPU
+kernel: the JAX package bins in XLA) with its launches in phase 7, its
+times and its bound.
 """
 
 import argparse
@@ -100,9 +109,14 @@ RASTER = 2 * OUT_SIZE
 AZIMUTHS = [float(a) for a in range(0, 360, 45)]
 DISTANCE, ELEVATION = 2.732, 30.0
 KERNELS = ('forward_shaded', 'forward_index', 'backward_sweeps',
-           'face_reduce')
+           'face_reduce', 'bin_faces')
 # the kernels a training step launches (the index kernel serves tune)
-TRAINING_KERNELS = ('forward_shaded', 'insweep', 'outsweep', 'face_reduce')
+TRAINING_KERNELS = ('forward_shaded', 'insweep', 'outsweep', 'face_reduce',
+                    'bin_faces')
+# the setup and binning's device operations, by the substrings of their
+# profiler names: its own kernels, CUB's scans and the counters' memset
+BINNING_OPS = ('bin_setup_kernel', 'bin_finish_kernel', 'bin_fill_kernel',
+               'DeviceScan', 'Memset (Device)')
 
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
 # device memory bytes/s and f32 operations/s outside the tensor cores
@@ -287,6 +301,47 @@ def _compare_index(name, settings, faces):
     return err
 
 
+def _bits_equal(a, b):
+    """Bit for bit, with any NaN equal to any NaN (torch.equal has NaN !=
+    NaN)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    same = a.view(torch.int32) == b.view(torch.int32)
+    return bool((same | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _compare_bins(name, settings, faces):
+    """The device setup and binning against its plain version on one scene,
+    at the forward kernels' tile: both records bit-equal, the four lists
+    equal, a repeat run bitwise equal.  Returns the number of pairs."""
+    tile = forward_cuda._kernel().nr_forward_shaded_tile()
+    _require(forward_cuda._index_kernel().nr_forward_index_tile() == tile,
+             'the two forward kernels bin at different tiles')
+    records = ('rec', 'irec')
+    got = forward_cuda.bin_setup(settings, faces, tile, records)
+    again = forward_cuda.bin_setup(settings, faces, tile, records)
+    want = forward_cuda.bin_setup_plain(settings, faces, tile, records)
+    torch.cuda.synchronize()
+    for key in records:
+        _require(_bits_equal(got[key], want[key]),
+                 f'{name}: device {key} differs from the plain version')
+        _require(_bits_equal(got[key], again[key]),
+                 f'{name}: the binning\'s repeat run differs in {key}')
+    for key in ('start', 'ids', 'order', 'first'):
+        _require(torch.equal(got[key], want[key]),
+                 f'{name}: device {key} differs from bin_faces')
+        _require(torch.equal(got[key], again[key]),
+                 f'{name}: the binning\'s repeat run differs in {key}')
+    pairs = int(got['ids'].shape[0])
+    lengths = (got['start'][1:] - got['start'][:-1]).long()
+    _log(f'compare binning {name}: records (18 and 28 floats) bit-equal, '
+         f'start/ids/order/first equal to bin_faces, repeat run bitwise '
+         f'equal; {pairs} (tile, face) pairs, '
+         f'{int((lengths > 0).sum())} of {lengths.numel()} tiles non-empty, '
+         f'longest list {int(lengths.max())}')
+    return pairs
+
+
 def _time_ms(fn, reps, warmup=1):
     for _ in range(warmup):
         fn()
@@ -303,11 +358,13 @@ def _time_ms(fn, reps, warmup=1):
 
 def _kernel_device_ms(fn, reps, kernel_name):
     """Device time per call of the CUDA kernels whose name contains
-    ``kernel_name`` (summed over the kernels one call launches), from
-    torch.profiler: each kernel's mean duration over the launches the
-    profiler caught, which need not be all ``reps`` of them; None where the
-    profiler reports no device time."""
+    ``kernel_name`` (a substring, or a tuple of them; summed over the
+    kernels one call launches), from torch.profiler: each kernel's mean
+    duration over the launches the profiler caught, which need not be all
+    ``reps`` of them; None where the profiler reports no device time."""
     from torch.profiler import ProfilerActivity, profile
+    patterns = ((kernel_name,) if isinstance(kernel_name, str)
+                else kernel_name)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -317,7 +374,7 @@ def _kernel_device_ms(fn, reps, kernel_name):
         torch.cuda.synchronize()
     total = 0.0
     for ev in prof.key_averages():
-        if kernel_name in ev.key and ev.count:
+        if any(p in ev.key for p in patterns) and ev.count:
             total += getattr(ev, 'device_time_total',
                              getattr(ev, 'cuda_time_total', 0.0)) / ev.count
     return total / 1000.0 if total > 0 else None
@@ -333,7 +390,8 @@ def _step_profile(step, eyes):
     """One sweep of ``step`` over ``eyes`` under torch.profiler: (device ms
     per step, the sum of the card's kernel and copy durations; profiled
     wall ms per step; {kernel: mean device ms per launch, one launch per
-    step}), or None where the profiler reports no device time."""
+    step}; {'kernels', 'copies', 'memsets': device operations per step}),
+    or None where the profiler reports no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -363,7 +421,40 @@ def _step_profile(step, eyes):
     # launch runs (face_reduce's two passes)
     return (total / 1e3 / n, wall * 1e3 / n,
             {k: us / count * len(kernels) / 1e3 if count else 0.0
-             for k, (us, count, kernels) in by.items()})
+             for k, (us, count, kernels) in by.items()},
+            _op_counts(prof, n))
+
+
+def _op_counts(prof, n):
+    """{'kernels', 'copies', 'memsets': device operations per call} of a
+    profile of ``n`` calls."""
+    from torch.autograd import DeviceType
+    ops = {'kernels': 0, 'copies': 0, 'memsets': 0}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            ops['copies' if 'Memcpy' in ev.name else
+                'memsets' if 'Memset' in ev.name else 'kernels'] += 1
+    return {k: v / n for k, v in ops.items()}
+
+
+def _device_ops(fn, reps=5):
+    """Device operations per call of ``fn``, from torch.profiler (which
+    may drop an event now and then)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return _op_counts(prof, reps)
+
+
+def _fmt_ops(ops):
+    return (f'{sum(ops.values()):.1f} device operations ({ops["kernels"]:.1f} '
+            f'kernels, {ops["copies"]:.1f} copies, {ops["memsets"]:.1f} '
+            'memsets)')
 
 
 def _fmt_ms(x):
@@ -552,6 +643,7 @@ def main():
     built = _build.build_all(KERNELS)
     forward_cuda._kernel()
     forward_cuda._index_kernel()
+    forward_cuda._binning()
     backward_cuda._sweeps()
     backward_cuda._reduce()
     _log(f'build: {", ".join(p.name for p, _ in built.values())} in '
@@ -571,6 +663,8 @@ def main():
         s = RasterizeSettings(image_size=64, eps=1e-3)
         worst = max(worst, _compare(f'random 64^2 nf 40 ts {ts}', s,
                                     torch.as_tensor(fc, device=dev), tx))
+        _compare_bins(f'random 64^2 nf 40 ts {ts}', s,
+                      torch.as_tensor(fc, device=dev))
 
     vertices, faces = _teapot()
     nf2 = 2 * faces.shape[0]
@@ -581,6 +675,7 @@ def main():
     fc4, tx4 = _raster_inputs(vertices, faces, tex2, eyes[::2], RASTER, dev)
     worst = max(worst, _compare(f'teapot {RASTER}^2 bs 4 ts 2', s512, fc4,
                                 tx4))
+    _compare_bins(f'teapot {RASTER}^2 bs 4', s512, fc4)
 
     # the golden batch: rows 0, 1, 3 are all-zero meshes (degenerate faces)
     gold = nt.Renderer()
@@ -594,6 +689,7 @@ def main():
     fcg, txg = gold._lit_faces(*nt.arrays_from_numpy(vz, fz, tz, dev))
     worst = max(worst, _compare(f'golden batch {RASTER}^2 bs 4 ts 4', s512,
                                 fcg, txg))
+    _compare_bins(f'golden batch {RASTER}^2 bs 4', s512, fcg)
 
     fc32, tx32 = _raster_inputs(vertices, faces, tex2,
                                 [e for e in eyes for _ in range(BATCH // 8)],
@@ -601,6 +697,10 @@ def main():
     worst = max(worst, _compare(
         f'teapot {RASTER}^2 bs {BATCH} ts 2 (main path shape)', s512, fc32,
         tx32))
+    _reset_launches()
+    forward_cuda.forward_shaded(s512, fc32, tx32)
+    _require(_launches()['bin_faces'] == 1,
+             'forward_shaded did not bin on the card once')
 
     def kernel():
         return forward_cuda.forward_shaded(s512, fc32, tx32)
@@ -631,6 +731,40 @@ def main():
          f'(pixel, face) pairs; {bounds["forward_shaded"][0]:.4f} ms by '
          f'{bounds["forward_shaded"][1]}')
 
+    # the setup and binning alone, as forward_shaded runs it (the 18-float
+    # records), at the main path's shape
+    tile = forward_cuda._kernel().nr_forward_shaded_tile()
+    tile_pairs32 = _compare_bins(
+        f'teapot {RASTER}^2 bs {BATCH} (main path shape)', s512, fc32)
+
+    def binning():
+        return forward_cuda.bin_setup(s512, fc32, tile)
+
+    def binning_plain():
+        return forward_cuda.bin_setup_plain(s512, fc32, tile)
+
+    b1 = _time_ms(binning, reps=20, warmup=3)
+    bp1 = _time_ms(binning_plain, reps=20, warmup=3)
+    b2 = _time_ms(binning, reps=20)
+    bp2 = _time_ms(binning_plain, reps=20)
+    nt32 = -(-RASTER // tile)
+    # faces read once; records, first, start, ids and order written once
+    bin_bound = _bound(4 * fc32.numel() + 4 * BATCH * nf2 * (18 + 1)
+                       + 4 * BATCH * nt32 * nt32 + 2 * 4 * tile_pairs32, 0)
+    bin_ops, plain_ops = _device_ops(binning), _device_ops(binning_plain)
+    binning_times = dict(ms=b1, plain_ms=bp1,
+                         alone_ms=_kernel_device_ms(binning, 10, BINNING_OPS),
+                         bound_ms=bin_bound[0], bound_by=bin_bound[1],
+                         pairs=tile_pairs32,
+                         device_ops=sum(bin_ops.values()),
+                         plain_device_ops=sum(plain_ops.values()))
+    _log(f'setup + binning at bs {BATCH}, {RASTER}^2, nf {nf2} on {smi}: '
+         f'bin_setup {b1:.3f} / {b2:.3f} ms, plain {bp1:.3f} / {bp2:.3f} ms '
+         f'(kernel, plain, kernel, plain); its device operations alone '
+         f'(profiler) {_fmt_ms(binning_times["alone_ms"])}; bound '
+         f'{bin_bound[0]:.4f} ms by {bin_bound[1]} ({tile_pairs32} pairs); '
+         f'per call {_fmt_ops(bin_ops)}, plain {_fmt_ops(plain_ops)}')
+
     # ---- 4. the forward-only path ----
     v = torch.as_tensor(np.tile(vertices[None], (BATCH, 1, 1)), device=dev)
     f = torch.as_tensor(np.tile(faces[None], (BATCH, 1, 1)), device=dev)
@@ -649,9 +783,10 @@ def main():
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     fwd_launches = _launches()
-    _require(fwd_launches['forward_shaded'] >= len(eyes),
-             f'forward path launched the kernel '
-             f'{fwd_launches["forward_shaded"]} times for {len(eyes)} renders')
+    for name in ('forward_shaded', 'bin_faces'):
+        _require(fwd_launches[name] >= len(eyes),
+                 f'forward path launched {name} {fwd_launches[name]} times '
+                 f'for {len(eyes)} renders')
     images = torch.stack(images)
     _require(tuple(images.shape) == (len(eyes), BATCH, 3, OUT_SIZE, OUT_SIZE),
              f'unexpected image shape {tuple(images.shape)}')
@@ -661,6 +796,23 @@ def main():
     _log(f'forward path: {len(eyes)} renders x batch {BATCH}, {OUT_SIZE}^2 '
          f'AA, ts 2: {elapsed:.4f} s, {len(eyes) * BATCH / elapsed:.2f} '
          f'images/s (forward only) on {smi}; launches {fwd_launches}')
+
+    def render(eye):
+        renderer.eye = eye
+        return renderer.render(v, f, t)
+
+    prof = _step_profile(render, eyes)
+    if prof is None:
+        _log('forward profile: the profiler reported no device time '
+             '(not measured)')
+    else:
+        fwd_dev_ms, fwd_wall_ms, _, fwd_ops = prof
+        _log(f'forward profile (torch.profiler, one sweep of {len(eyes)} '
+             f'renders) on {smi}: per forward call {_fmt_ops(fwd_ops)}, '
+             f'device {fwd_dev_ms:.3f} ms; against the unprofiled sweep\'s '
+             f'{elapsed * 1e3 / len(eyes):.3f} ms per render the card idles '
+             f'{100 * (1 - fwd_dev_ms * len(eyes) / elapsed / 1e3):.1f}% '
+             f'(profiled wall {fwd_wall_ms:.3f} ms)')
 
     # ---- 5. golden ----
     ref = np.load(os.path.join(DATA, 'teapot_aa_rgb_fingerprint.npz'))
@@ -903,10 +1055,11 @@ def main():
         _log('training step profile: the profiler reported no device time '
              '(not measured)')
     else:
-        dev_ms, wall_ms, by = prof
+        dev_ms, wall_ms, by, step_ops = prof
         step_ms = elapsed * 1e3 / len(eyes)
         _log(f'training step profile (torch.profiler, one sweep of '
-             f'{len(eyes)} steps) on {smi}: device {dev_ms:.3f} ms per step '
+             f'{len(eyes)} steps) on {smi}: per step {_fmt_ops(step_ops)}; '
+             f'device {dev_ms:.3f} ms per step '
              f'(profiled wall {wall_ms:.3f} ms); against the unprofiled '
              f'sweep\'s {step_ms:.3f} ms per step the card idles '
              f'{100 * (1 - dev_ms / step_ms):.1f}%; per step '
@@ -984,6 +1137,8 @@ def main():
         s = RasterizeSettings(image_size=64, eps=1e-3)
         iworst = max(iworst, _compare_index(f'{kind_} 64^2 nf 40', s,
                                             torch.as_tensor(fc, device=dev)))
+        _compare_bins(f'{kind_} 64^2 nf 40', s,
+                      torch.as_tensor(fc, device=dev))
         if kind_ == 'duplicated':
             got = forward_cuda.forward_face_index_map(
                 s, torch.as_tensor(fc, device=dev))[0]
@@ -1076,6 +1231,7 @@ def main():
         fcl = nt.vertices_to_faces(large._transform(lvt),
                                    large._fill_back_faces(lft))
     nfl = fcl.shape[1]
+    _compare_bins(f'icosphere nf {nfl} {RASTER}^2 bs 1', s512, fcl)
     iworst = max(iworst, _compare_index(
         f'icosphere nf {nfl} {RASTER}^2 bs 1', s512, fcl))
     del fcl
@@ -1132,6 +1288,14 @@ def main():
                         'neural_renderer_tpu/rasterize/backward_pallas.py:867',
                         bworst['face_reduce'], launches),
     }
+    _log(json.dumps({'binning': {
+        'name': 'bin_faces', 'route': 'cuda',
+        'source': 'neural_renderer_torch/csrc/bin_faces.cu',
+        'replaces': 'XLA code, not a TPU kernel: neural_renderer_tpu/'
+                    'rasterize/forward_pallas.py:211-299 (_face_tile_ranges, '
+                    '_membership_prefix, _feature_table)',
+        'launches': launches['bin_faces'], 'max_abs_err': 0.0,
+        **binning_times}}))
     _log(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
         'launches': counts[name], 'max_abs_err': err_k,

@@ -91,3 +91,11 @@ def load(name):
     """The ctypes handle of kernel library ``name``, built at first use."""
     path, _ = build(name)
     return ctypes.CDLL(str(path))
+
+
+def raise_on_error(lib, rc, name):
+    """Raise if launcher ``name`` of ``lib`` returned CUDA error ``rc``
+    (its library's ``nr_error_string`` names it)."""
+    if rc != 0:
+        raise RuntimeError(f'{name} kernel launch failed: '
+                           + lib.nr_error_string(rc).decode())

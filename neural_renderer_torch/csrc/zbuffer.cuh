@@ -1,9 +1,10 @@
-// The binned z-buffer loop shared by forward_shaded.cu and forward_index.cu.
+// The binned z-buffer loop of forward_shaded.cu (forward_index.cu has a z
+// loop of its own).
 //
 // One block of kTile x kTile threads owns one screen tile of one batch
-// element, one thread per pixel.  The host side (forward_cuda.py) bins
-// every front face by its conservative pixel bbox (+-1 pixel pad) into
-// per-(batch, tile) lists in ascending face order, in CSR form.  The block
+// element, one thread per pixel.  bin_faces.cu bins every front face by its
+// conservative pixel bbox (+-1 pixel pad) into per-(batch, tile) lists in
+// ascending face order, in CSR form.  The block
 // stages its tile's list in chunks of kThreads face records in shared
 // memory; every thread walks the chunk (all threads read the same record: a
 // shared-memory broadcast) and keeps a running (zmin, winner) with a strict

@@ -86,12 +86,6 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _raise_on(lib, rc, name):
-    if rc != 0:
-        raise RuntimeError(f'{name} kernel launch failed: '
-                           + lib.nr_error_string(rc).decode())
-
-
 def _check_sweep_inputs(settings, xy, face_index_map, rgb, grad_rgb,
                         grad_alpha):
     bs, is_ = face_index_map.shape[0], settings.image_size
@@ -139,7 +133,7 @@ def _launch_sweep(name, settings, xy, face_index_map, rgb, grad_rgb,
             xy.data_ptr(), fim.data_ptr(), _ptr(rgb), _strides(rgb),
             _ptr(grad_rgb), _strides(grad_rgb), _ptr(ga), bs, is_,
             settings.eps, out.data_ptr(), out.stride(0), *extra, _stream(xy))
-    _raise_on(lib, rc, name)
+    _build.raise_on_error(lib, rc, name)
     LAUNCHES[name] += 1
     return out
 
@@ -311,6 +305,6 @@ def face_reduce(stack, face_index_map, nf, ts=0, bins=None):
             *(bins[k].data_ptr() for k in ('start', 'ids', 'order', 'first')),
             bs, nf, is_, C, ts, partial.data_ptr(), out.data_ptr(),
             _stream(stack))
-    _raise_on(lib, rc, 'face_reduce')
+    _build.raise_on_error(lib, rc, 'face_reduce')
     LAUNCHES['face_reduce'] += 1
     return out

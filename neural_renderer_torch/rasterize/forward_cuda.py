@@ -14,13 +14,17 @@ with ``ts <= 4`` (reference rasterize.py:398-425).
 minimum depth only (the quantity the z test compares), for ``tune`` and
 ``measure_scene``.
 
-The per-face precompute and the binning are plain PyTorch, as the JAX package
-does them in XLA (``forward_pallas._feature_table``, ``_face_tile_ranges``):
+The per-face setup and the binning (the JAX package does them in XLA:
+``forward_pallas._feature_table``, ``_face_tile_ranges``) are ``bin_setup``:
+on a CUDA tensor the hand-written kernels of ``csrc/bin_faces.cu``, on a CPU
+tensor ``bin_setup_plain``, built from
 
   * ``_face_records``: per face its NDC ``x0 y0 x1 y1 x2 y2``, ``z0 z1 z2``
     and the barycentric matrix face_inv, zeroed where it is not finite
     (degenerate faces: their weights are then 0 and their depth ``0/0``,
-    which the z test rejects);
+    which the z test rejects), the shaded kernel's record;
+  * ``_index_records``: the index kernel's record, the same values with the
+    edge differences, ``1/z`` and the pixel bbox made once per face;
   * ``bin_faces``: every front face goes to each screen tile its
     conservative pixel bbox (``+-1`` pad) overlaps, in ascending face order,
     as CSR lists (``start`` offsets + face ``ids``), with the pairs'
@@ -51,7 +55,7 @@ from neural_renderer_torch.rasterize.config import on_card
 
 # Kernel launches since import (or since a caller reset them), per kernel:
 # one per launch of the CUDA kernel, never for the plain version.
-LAUNCHES = {'forward_shaded': 0, 'forward_index': 0}
+LAUNCHES = {'forward_shaded': 0, 'forward_index': 0, 'bin_faces': 0}
 
 # faces per chunk of the JAX package's Pallas forward (forward_pallas.py:94);
 # the port's kernels have no chunks, the scene counters count in them
@@ -94,6 +98,25 @@ def _index_kernel():
     return lib
 
 
+@functools.cache
+def _binning():
+    """The setup and binning kernels' library, built at first use."""
+    lib = _build.load('bin_faces')
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.nr_bin_cells.argtypes = [i32] * 4
+    lib.nr_bin_cells.restype = i64
+    lib.nr_bin_scan_bytes.argtypes = [i32] * 4
+    lib.nr_bin_scan_bytes.restype = i64
+    lib.nr_bin_count.argtypes = ([ptr] + [i32] * 4 + [ptr] * 8 + [i64]
+                                 + [ptr] * 3)
+    lib.nr_bin_count.restype = i32
+    lib.nr_bin_fill.argtypes = [ptr] * 3 + [i32] * 4 + [ptr] * 3
+    lib.nr_bin_fill.restype = i32
+    lib.nr_error_string.argtypes = [i32]
+    lib.nr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _face_records(settings, faces):
     """Per-face records ``[bs, nf, 18]``: NDC xy of the 3 vertices, z0-2,
     face_inv rows (non-finite entries zeroed)."""
@@ -105,6 +128,26 @@ def _face_records(settings, faces):
     finv = torch.where(torch.isfinite(finv), finv, torch.zeros_like(finv))
     return torch.cat([faces[..., 0:2].reshape(bs, nf, 6), faces[..., 2],
                       finv.reshape(bs, nf, 9)], dim=-1).contiguous()
+
+
+def _index_records(settings, faces):
+    """The index kernel's per-face records ``[bs, nf, 28]``: NDC ``x0 y0 x1
+    y1 x2 y2``, the edge differences ``x1-x0 y1-y0 x2-x1 y2-y1 x0-x2
+    y0-y2``, face_inv (as ``_face_records``), ``1/z0 1/z1 1/z2``, and the
+    conservative pixel bbox of ``_face_tile_ranges``: rows ``floor(min py)
+    - 1``, ``ceil(max py) + 1``, columns ``floor(min px) - 1``, ``ceil(max
+    px) + 1``."""
+    rec = _face_records(settings, faces)
+    x, y = faces[..., 0], faces[..., 1]
+    edges = torch.stack([x[..., 1] - x[..., 0], y[..., 1] - y[..., 0],
+                         x[..., 2] - x[..., 1], y[..., 2] - y[..., 1],
+                         x[..., 0] - x[..., 2], y[..., 0] - y[..., 2]], -1)
+    bbox = []
+    for v in (y, x):
+        p = geometry.to_pixel_coords(v, settings.image_size)
+        bbox += [torch.floor(p.amin(-1)) - 1.0, torch.ceil(p.amax(-1)) + 1.0]
+    return torch.cat([rec[..., :6], edges, rec[..., 9:], 1.0 / faces[..., 2],
+                      torch.stack(bbox, -1)], dim=-1).contiguous()
 
 
 def _face_tile_ranges(settings, faces, tile):
@@ -176,6 +219,92 @@ def bin_faces(settings, faces, tile):
     return start, ids, order.to(torch.int32), first.to(torch.int32)
 
 
+def bin_setup(settings, faces, tile, records=('rec',)):
+    """The per-face records and the tile lists of NDC ``faces [bs, nf, 3,
+    3]`` at ``tile``: dict(tile, start, ids, order, first) of ``bin_faces``,
+    plus ``rec`` (``_face_records``) and ``irec`` (``_index_records``) as
+    ``records`` asks.
+
+    A CUDA tensor runs the kernels of ``csrc/bin_faces.cu`` (counted once in
+    ``LAUNCHES['bin_faces']``) or raises; the pair total is read back to the
+    host once, to size ``ids`` and ``order``.  A CPU tensor runs
+    ``bin_setup_plain``.
+    """
+    unknown = set(records) - {'rec', 'irec'}
+    if unknown:
+        raise ValueError(f'unknown records {sorted(unknown)}')
+    if not on_card(faces):
+        return bin_setup_plain(settings, faces, tile, records)
+    faces = faces.contiguous()
+    bs, nf = faces.shape[:2]
+    is_ = settings.image_size
+    nt = -(-is_ // tile)
+    lib = _binning()
+    dev = faces.device
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = dict(tile=tile)
+    for name, width in (('rec', 18), ('irec', 28)):
+        if name in records:
+            out[name] = empty(bs, nf, width, dtype=torch.float32)
+    cells, temp_bytes = _bin_sizes(bs, nf, is_, tile)
+    rect = empty(bs * nf, 4)
+    count = empty(bs * nf + 1, dtype=torch.int64)
+    first64 = empty(bs * nf + 1, dtype=torch.int64)
+    cnt, offs = empty(cells), empty(cells)
+    temp = empty(max(temp_bytes, 1), dtype=torch.uint8)
+    out['first'] = empty(bs * nf + 1)
+    out['start'] = empty(bs * nt * nt + 1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.nr_bin_count(
+            faces.data_ptr(), bs, nf, is_, tile, _ptr(out.get('rec')),
+            _ptr(out.get('irec')), rect.data_ptr(), count.data_ptr(),
+            first64.data_ptr(), cnt.data_ptr(), offs.data_ptr(),
+            temp.data_ptr(), temp_bytes, out['first'].data_ptr(),
+            out['start'].data_ptr(), stream)
+        _build.raise_on_error(lib, rc, 'bin_faces count')
+        total = int(first64[-1])            # the forward's one host sync
+        if total >= 2 ** 31:
+            raise ValueError(
+                f'{total} (tile, face) pairs overflow int32 offsets')
+        out['ids'], out['order'] = empty(total), empty(total)
+        rc = lib.nr_bin_fill(rect.data_ptr(), out['first'].data_ptr(),
+                             offs.data_ptr(), bs, nf, is_, tile,
+                             out['ids'].data_ptr(), out['order'].data_ptr(),
+                             stream)
+        _build.raise_on_error(lib, rc, 'bin_faces fill')
+    LAUNCHES['bin_faces'] += 1
+    return out
+
+
+@functools.cache
+def _bin_sizes(bs, nf, is_, tile):
+    """(tile, chunk) counters and CUB scratch bytes of ``nr_bin_count``."""
+    lib = _binning()
+    cells = lib.nr_bin_cells(bs, nf, is_, tile)
+    temp_bytes = lib.nr_bin_scan_bytes(bs, nf, is_, tile)
+    if temp_bytes < 0:
+        raise RuntimeError(f'bin_faces: no scan for {cells} (tile, chunk) '
+                           'counters (more than int32 offsets hold, or CUB '
+                           'failed)')
+    return cells, temp_bytes
+
+
+def bin_setup_plain(settings, faces, tile, records=('rec',)):
+    """The plain PyTorch version of ``bin_setup``: ``bin_faces`` and the
+    record functions, on any device."""
+    start, ids, order, first = bin_faces(settings, faces, tile)
+    out = dict(tile=tile, start=start, ids=ids, order=order, first=first)
+    if 'rec' in records:
+        out['rec'] = _face_records(settings, faces)
+    if 'irec' in records:
+        out['irec'] = _index_records(settings, faces)
+    return out
+
+
 def _check(settings, faces, textures):
     if faces.dtype != torch.float32 or faces.ndim != 4 \
             or faces.shape[2:] != (3, 3):
@@ -229,7 +358,7 @@ def forward_shaded(settings, faces, textures=None):
     if textures is not None:
         out['rgb'] = empty(bs, 3, is_, is_)
     out['bins'] = _launch_binned(
-        _kernel(), 'forward_shaded', settings, faces, [_ptr(texc)],
+        _kernel(), 'forward_shaded', 'rec', settings, faces, [_ptr(texc)],
         [ts, settings.near, settings.far, ts - 1 - settings.eps],
         [out['face_index_map'], out['depth_map'], out['weights'], out['xy'],
          out['z'], out.get('rgb')])
@@ -240,28 +369,28 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_binned(lib, name, settings, faces, inputs, scalars, outputs):
+def _launch_binned(lib, name, record, settings, faces, inputs, scalars,
+                   outputs):
     """Launch kernel ``name`` of ``lib`` on the binned tiles of ``faces``:
     ``nr_<name>(records, start, ids, *inputs, bs, nf, is, *scalars,
-    *outputs, stream)``, with the per-face records and the CSR tile lists
-    made here at the kernel's tile size.  Raises if the launch fails;
-    counts it in ``LAUNCHES`` otherwise.  Returns the tile lists:
-    dict(tile, start, ids, order, first) of ``bin_faces``."""
-    faces = faces.contiguous()
+    *outputs, stream)``, with the per-face records (``record``: 'rec' or
+    'irec') and the CSR tile lists made on the card by ``bin_setup`` at the
+    kernel's tile size.  Raises if a launch fails; counts the kernel in
+    ``LAUNCHES`` otherwise.  Returns the tile lists: dict(tile, start, ids,
+    order, first) of ``bin_faces``."""
     bs, nf = faces.shape[:2]
-    rec = _face_records(settings, faces)
-    tile = getattr(lib, f'nr_{name}_tile')()
-    start, ids, order, first = bin_faces(settings, faces, tile)
+    bins = bin_setup(settings, faces, getattr(lib, f'nr_{name}_tile')(),
+                     records=(record,))
+    rec = bins.pop(record)
     with torch.cuda.device(faces.device):
         rc = getattr(lib, f'nr_{name}')(
-            rec.data_ptr(), start.data_ptr(), ids.data_ptr(), *inputs,
-            bs, nf, settings.image_size, *scalars, *map(_ptr, outputs),
+            rec.data_ptr(), bins['start'].data_ptr(), bins['ids'].data_ptr(),
+            *inputs, bs, nf, settings.image_size, *scalars,
+            *map(_ptr, outputs),
             torch.cuda.current_stream(faces.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'{name} kernel launch failed: '
-                           + lib.nr_error_string(rc).decode())
+    _build.raise_on_error(lib, rc, name)
     LAUNCHES[name] += 1
-    return dict(tile=tile, start=start, ids=ids, order=order, first=first)
+    return bins
 
 
 def forward_shaded_plain(settings, faces, textures=None):
@@ -303,8 +432,8 @@ def forward_face_index_map(settings, faces):
     shape = (faces.shape[0], settings.image_size, settings.image_size)
     idx = torch.empty(shape, dtype=torch.int32, device=faces.device)
     depth = torch.empty(shape, dtype=torch.float32, device=faces.device)
-    _launch_binned(_index_kernel(), 'forward_index', settings, faces, [],
-                   [settings.near, settings.far], [idx, depth])
+    _launch_binned(_index_kernel(), 'forward_index', 'irec', settings, faces,
+                   [], [settings.near, settings.far], [idx, depth])
     return idx, depth
 
 
