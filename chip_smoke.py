@@ -4,10 +4,10 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero; progress goes to stdout):
   1. the card: ``torch.cuda.is_available()``, name and power limit;
-  2. build the CUDA kernels from ``neural_renderer_torch/csrc`` (five
-     sources: the five TPU kernels' counterparts and the forward's setup
-     and binning; one nvcc each, all started together) and print ptxas'
-     register and shared-memory report;
+  2. build the CUDA kernels from ``neural_renderer_torch/csrc`` (six
+     sources: the five TPU kernels' counterparts, the forward's setup and
+     binning and the segmented sum; one nvcc each, all started together)
+     and print ptxas' register and shared-memory report;
   3. the forward kernel against its plain PyTorch version on the card,
      inputs from ``--seed``: random 64^2 scenes (no textures, ts 2/3/4) and
      the teapot at a 512^2 raster (bs 4 ts 2, the golden batch at ts 4, and
@@ -41,7 +41,8 @@ Phases (any failure exits non-zero; progress goes to stdout):
      one step per bench azimuth after one warm-up step, counting launches
      of every kernel (at least one per kernel per step), then one more
      sweep under torch.profiler: device time and device operations per
-     step, the card's idle share and the kernels' device times;
+     step, the card's idle share and the kernels' device times; two steps
+     of one eye must give bitwise-equal vertex and texture gradients;
   8. a trainer: a ``Mesh`` of the teapot (ts 2), built on the card by
      ``Mesh.from_obj`` itself, fitted by ``Adam`` for 10 steps at batch 32
      (the 8 azimuths x 4), 256^2 AA, L2 against renders of a shifted mesh;
@@ -66,11 +67,41 @@ Phases (any failure exits non-zero; progress goes to stdout):
      setup and binning and the index kernel against their plain versions at
      bs 1 on 512^2 (0 mismatches), then a ``render_silhouettes`` training
      step at batch 4, 256^2 AA, over the 8 azimuths: every kernel launches,
-     the vertex gradient is finite and non-zero, images/s printed.
+     the vertex gradient is finite and non-zero, images/s printed;
+ 13. long lines: on a sparse random scene at bs 1, the out-sweep at a
+     4096^2 raster for ``render_silhouettes`` (alpha) and ``render`` (rgb),
+     written and accumulated, against its plain version (1e-4 x channel
+     max) with bitwise-equal repeat runs, then a training step of each at
+     2048^2 AA; training steps of ``render`` at a 2800 raster and
+     ``render_rgbad`` at an 8192 raster; every step launches the out-sweep
+     and repeats bit for bit.  At 512^2 the crossing list is forced into
+     rounds (``backward_cuda._outsweep`` with a small ``cap``), with the
+     planes staged and read from device memory, against the plain version;
+ 14. deterministic scatters: a ts 8 training step at bs 4 twice (vertex and
+     texture gradients bitwise equal); the ts 8 texture gradient
+     (``texture.grad_textures``: its rows sorted by cell, then summed by
+     segments) against its plain version on CPU copies of the same maps
+     (1e-6 x column max), and the sort of its rows, the segmented sum and
+     the whole gradient timed at bs 4 and at bs 32; the segmented sum
+     (``csrc/segment_sum.cu``) against its plain version (1e-6 x column
+     max) at the main path's vertex scatter and at the ts 8 texture
+     scatter's scale, timed with its plain version and ``index_add_``;
+ 15. parallel on one card: 2 ranks spawned over gloo (``file://``
+     rendezvous in a temporary directory), each on ``cuda:0``: the
+     face-sharded ``render_rgbad`` of the main path's workload at ts 2 and
+     ts 8 bit-equal to the one-process render of the shard-order list,
+     texture gradients equal and vertex gradients within rtol 5e-4; the
+     rasterizer alone on each rank's slice of the lit face list: images
+     bit-equal, texture gradients equal, face gradients within the JAX
+     package's face-parallel contract; then 3 data-parallel steps (functional
+     ``adam``) whose loss must fall, with equal parameters on both ranks;
+ 16. spatial face order: one timed forward sweep with
+     ``Mesh(spatial_order=True)`` and one without (no claim).
 
 The last stdout line is the JSON device record.  The line before it lists each
 of the five kernels with its launches on its path (phase 7 for the first four,
-phase 11 for the index kernel), its worst error against the plain version,
+phase 11 for the index kernel), its worst error against the plain version
+(the out-sweep's over phases 6 and 13),
 its time and the plain version's, its bound (the larger of the bytes it must
 move over the card's memory rate and its operations over the f32 rate, from
 this run's inputs) and the library side's time where PyTorch has a call for
@@ -79,22 +110,30 @@ covered rows' gather and one ``index_add_``, from the kernel's own inputs.
 The out-sweep's and the reduction's entries also carry the other timings of
 phase 6.  The line before that gives the setup and binning (not a TPU
 kernel: the JAX package bins in XLA) with its launches in phase 7, its
-times and its bound.
+times and its bound, and the one before that the segmented sum (not a TPU
+kernel either) with its launches in phase 7 (and per step), its device
+time per step from phase 7's profile, and phase 14's numbers at the main
+path's vertex scatter.
 """
 
 import argparse
+import copy
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 import neural_renderer_torch as nt
-from neural_renderer_torch import _build
+from neural_renderer_torch import _build, parallel
+from neural_renderer_torch.ops import segments
 from neural_renderer_torch.rasterize import backward as bwd
 from neural_renderer_torch.rasterize import api, backward_cuda, core
 from neural_renderer_torch.rasterize import forward_cuda
@@ -109,10 +148,10 @@ RASTER = 2 * OUT_SIZE
 AZIMUTHS = [float(a) for a in range(0, 360, 45)]
 DISTANCE, ELEVATION = 2.732, 30.0
 KERNELS = ('forward_shaded', 'forward_index', 'backward_sweeps',
-           'face_reduce', 'bin_faces')
+           'face_reduce', 'bin_faces', 'segment_sum')
 # the kernels a training step launches (the index kernel serves tune)
 TRAINING_KERNELS = ('forward_shaded', 'insweep', 'outsweep', 'face_reduce',
-                    'bin_faces')
+                    'bin_faces', 'segment_sum')
 # the setup and binning's device operations, by the substrings of their
 # profiler names: its own kernels, CUB's scans and the counters' memset
 BINNING_OPS = ('bin_setup_kernel', 'bin_finish_kernel', 'bin_fill_kernel',
@@ -144,6 +183,17 @@ SUM_TOL = 1e-4
 # is within 2.43e-4 x max |grad| of it
 FINGERPRINT_TOL = 1e-3
 
+# the segmented sum against its plain version (index_add_): another
+# summation order, held to 1e-6 x the column's max |value|
+SEGMENT_TOL = 1e-6
+# a long line's crossing list forced into rounds at 512^2
+FORCED_CAPS = (5, 64)
+# the long-line phase's output size (AA doubles the raster)
+LONG_OUT = 2048
+# the two ranks of the parallel phase, sharing the one card over gloo
+RANKS = 2
+RANK_TIMEOUT_S = 300
+
 # tests/test_rasterize.py:79, :257 and tests/test_rasterize_silhouettes.py:
 # 53, :64: (vertices, pixel y, pixel x, on_face, d loss / d vertices)
 ANCHORS = [
@@ -171,13 +221,15 @@ def _teapot():
 
 
 def _reset_launches():
-    for counts in (forward_cuda.LAUNCHES, backward_cuda.LAUNCHES):
+    for counts in (forward_cuda.LAUNCHES, backward_cuda.LAUNCHES,
+                   segments.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def _launches():
-    return dict(**forward_cuda.LAUNCHES, **backward_cuda.LAUNCHES)
+    return dict(**forward_cuda.LAUNCHES, **backward_cuda.LAUNCHES,
+                **segments.LAUNCHES)
 
 
 def _bound(nbytes, ops):
@@ -383,7 +435,8 @@ def _kernel_device_ms(fn, reps, kernel_name):
 # kernels whose device time the training-step profile reports, by the
 # substring of their names
 PROFILED = {'forward_shaded': 'shaded_kernel', 'insweep': 'insweep_kernel',
-            'outsweep': 'outsweep_', 'face_reduce': 'face_reduce_'}
+            'outsweep': 'outsweep_', 'face_reduce': 'face_reduce_',
+            'segment_sum': 'segment_sum_kernel'}
 
 
 def _step_profile(step, eyes):
@@ -616,6 +669,241 @@ def _anchor_grad(vertices, pyi, pxi, on_face, mode, dev):
     return vt.grad.cpu().numpy()
 
 
+def _sparse_scene(rng, nf):
+    """A sparse random scene: ``nf`` small triangles, each with its own
+    three vertices, scattered over the view (the long-line phase's mesh)."""
+    centers = rng.uniform(-0.8, 0.8, (nf, 1, 3))
+    corners = centers + rng.uniform(-0.06, 0.06, (nf, 3, 3))
+    v = corners.reshape(-1, 3).astype(np.float32)
+    f = np.arange(3 * nf, dtype=np.int32).reshape(nf, 3)
+    return v, f
+
+
+def _grad_step(fn, leaves):
+    """``fn(*leaves).sum().backward()`` on fresh leaf copies; their
+    gradients (None for a None leaf)."""
+    leaves = [None if x is None else x.clone().requires_grad_()
+              for x in leaves]
+    out = fn(*leaves)
+    loss = (out.sum() if torch.is_tensor(out)
+            else sum(x.sum() for x in out.values()))
+    loss.backward()
+    return [None if x is None else x.grad for x in leaves]
+
+
+def _grads_equal(a, b):
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+def _grads_ok(grads):
+    return all(g is None or (bool(torch.isfinite(g).all())
+                             and float(g.abs().max()) > 0) for g in grads)
+
+
+def _face_contract(got, want):
+    """The JAX package's face-parallel gradient contract
+    (tests/test_face_parallel.py:169-176): under 0.5% of the elements
+    differ and all lie within rtol 5e-4, atol 5e-4 x max |want|.  Returns
+    (ok, share of elements that differ, max |err| / max |want|)."""
+    scale = float(want.abs().max())
+    frac = float((got != want).float().mean())
+    ok = (frac < 0.005 and scale > 0 and bool(torch.allclose(
+        got, want, rtol=5e-4, atol=5e-4 * scale)))
+    return ok, frac, float((got - want).abs().max()) / max(scale, 1e-30)
+
+
+def _shard_order(faces, tex, world):
+    """The one-process face list (and textures) that a face-sharded render
+    over ``world`` ranks with fill_back equals: each rank's slice followed
+    by its reversed copy, in rank order."""
+    n = faces.shape[1] // world
+    parts = [slice(k * n, (k + 1) * n) for k in range(world)]
+    f = torch.cat([torch.cat([faces[:, p], faces[:, p].flip(2)], 1)
+                   for p in parts], 1)
+    t = torch.cat([torch.cat([tex[:, p], tex[:, p].permute(0, 1, 4, 3, 2, 5)],
+                             1) for p in parts], 1)
+    return f, t
+
+
+def _rank_checks(rank, world, seed):
+    """The parallel phase on one rank (the card shared by all): the
+    face-sharded ``render_rgbad`` of the main path's workload at ts 2 and
+    ts 8 against the one-process render of the shard-order list, then
+    three data-parallel training steps.  Returns a JSON-able dict."""
+    group = dist.group.WORLD
+    dev = torch.device('cuda', 0)
+    vertices, faces = _teapot()
+    nf = faces.shape[0]
+    eyes = np.array([nt.get_points_from_angles(DISTANCE, ELEVATION, a)
+                     for a in AZIMUTHS for _ in range(BATCH // 8)],
+                    np.float32)
+    v = torch.as_tensor(np.tile(vertices[None], (BATCH, 1, 1)), device=dev)
+    f = torch.as_tensor(np.tile(faces[None], (BATCH, 1, 1)).astype(np.int64),
+                        device=dev)
+    r = nt.Renderer()
+    r.image_size = OUT_SIZE
+    r.eye = eyes
+    one = copy.copy(r)
+    one.fill_back = False
+    out = dict(rank=rank)
+    for ts in (2, 8):
+        rng = np.random.RandomState(seed + ts)
+        tex = torch.as_tensor(rng.uniform(0, 1, (BATCH, nf, ts, ts, ts, 3))
+                              .astype(np.float32), device=dev)
+        w = torch.as_tensor(rng.uniform(-1, 1, (BATCH, 3, OUT_SIZE, OUT_SIZE))
+                            .astype(np.float32), device=dev)
+        fl, tl = parallel.shard_faces(group, f, tex)
+        render = parallel.make_face_sharded_render(r, group, 'rgbad')
+
+        def loss(o):
+            return ((o['rgb'] * w).sum() + o['alpha'].sum()
+                    + o['depth'].sum())
+
+        _reset_launches()
+        vl = v.clone().requires_grad_()
+        tll = tl.clone().requires_grad_()
+        o = render(vl, fl, tll)
+        loss(o).backward()
+        torch.cuda.synchronize()
+        launches = _launches()
+        ff, tt = _shard_order(f, tex, world)
+        v1 = v.clone().requires_grad_()
+        t1 = tt.clone().requires_grad_()
+        o1 = one.render_rgbad(v1, ff, t1)
+        loss(o1).backward()
+        n = nf // world
+        part = t1.grad[:, 2 * n * rank:2 * n * (rank + 1)]
+        want_t = part[:, :n] + part[:, n:].permute(0, 1, 4, 3, 2, 5)
+        # the vertex gradient sums the ranks' partial sums, so it differs
+        # from one process's in the last bits of many elements: held to
+        # the contract's tolerance, its share of differing elements shown
+        _, frac_v, err_v = _face_contract(vl.grad, v1.grad)
+        check = dict(
+            images_equal=all(bool(torch.equal(o[k], o1[k]))
+                             for k in ('rgb', 'alpha', 'depth')),
+            textures_equal=bool(torch.equal(tll.grad, want_t)),
+            vertices_ok=bool(torch.allclose(
+                vl.grad, v1.grad, rtol=5e-4,
+                atol=5e-4 * float(v1.grad.abs().max()))),
+            vertices_differ=frac_v, vertices_err=err_v,
+            texture_grad_max=float(want_t.abs().max()),
+            finite=bool(all(torch.isfinite(o[k]).all()
+                            for k in ('rgb', 'alpha', 'depth'))),
+            launches=launches)
+        del o, o1, vl, v1, tll, t1, tt, part, want_t
+
+        # the rasterizer alone on this rank's slice of the lit fill_back
+        # list: its face gradient is a slice of one process's
+        with torch.no_grad():
+            fc, txc = r._lit_faces(v, f, tex)
+            # each face beside its fill_back copy, so that every rank's
+            # slice holds faces the camera sees (the teapot's own faces
+            # face away from it)
+            order = torch.arange(fc.shape[1], device=dev).reshape(
+                2, -1).t().reshape(-1)
+            fc, txc = fc[:, order], txc[:, order]
+        part = parallel._rank_slice(group, fc.shape[1])
+        opts = (OUT_SIZE, True, r.near, r.far, r.rasterizer_eps,
+                r.background_color, True, True, True)
+        fcl = fc[:, part].clone().requires_grad_()
+        txl = txc[:, part].clone().requires_grad_()
+        o = nt.rasterize_rgbad(fcl, txl, *opts, face_group=group)
+        loss(o).backward()
+        fc1 = fc.clone().requires_grad_()
+        tx1 = txc.clone().requires_grad_()
+        o1 = nt.rasterize_rgbad(fc1, tx1, *opts)
+        loss(o1).backward()
+        ok_f, frac_f, err_f = _face_contract(fcl.grad, fc1.grad[:, part])
+        check.update(
+            raster_images_equal=all(bool(torch.equal(o[k], o1[k]))
+                                    for k in ('rgb', 'alpha', 'depth')),
+            raster_textures_equal=bool(torch.equal(txl.grad,
+                                                   tx1.grad[:, part])),
+            faces_ok=ok_f, faces_differ=frac_f, faces_err=err_f)
+        out[f'ts{ts}'] = check
+        del o, o1, fc, txc, fcl, txl, fc1, tx1, tex
+
+    # data parallel: the vertices and textures of a Mesh-like fit, batch 32
+    # split over the ranks, three steps of functional Adam
+    rng = np.random.RandomState(seed)
+    params = dict(vertices=torch.as_tensor(vertices, device=dev),
+                  textures=torch.as_tensor(
+                      rng.normal(0, 0.05, (nf, 2, 2, 2, 3)).astype(np.float32),
+                      device=dev))
+    fit = nt.Renderer()
+    fit.image_size = OUT_SIZE
+    with torch.no_grad():
+        fit.eye = eyes
+        shift = torch.tensor([0.05, 0.03, 0.0], device=dev)
+        target = fit.render((params['vertices'] + shift)[None].expand(
+            BATCH, -1, -1), f, torch.sigmoid(
+                -params['textures'])[None].expand(BATCH, *(-1,) * 5))
+    faces_t = f[0]
+
+    def loss_fn(p, batch):
+        tgt, eye = batch
+        n = tgt.shape[0]
+        fit.eye = eye
+        img = fit.render(p['vertices'][None].expand(n, -1, -1),
+                         faces_t[None].expand(n, -1, -1),
+                         torch.sigmoid(p['textures'])[None].expand(
+                             n, *(-1,) * 5))
+        return ((img - tgt) ** 2).sum(dim=(1, 2, 3)).mean()
+
+    init_fn, update_fn = nt.adam(alpha=0.01)
+    state = init_fn(params)
+    step = parallel.make_data_parallel_train_step(loss_fn, update_fn, group)
+    batch = parallel.shard_batch(group, target,
+                                 torch.as_tensor(eyes, device=dev))
+    losses = []
+    for _ in range(3):
+        params, state, loss_t = step(params, state, batch)
+        losses.append(float(loss_t))
+    out['dp'] = dict(losses=losses, rows=int(batch[0].shape[0]),
+                     checksum=float(params['vertices'].double().sum()
+                                    + params['textures'].double().sum()))
+    return out
+
+
+def _rank_main(rank, world, path, seed):
+    """Entry of a spawned rank: gloo over a file rendezvous in ``path``,
+    the checks of ``_rank_checks`` written to ``path``/rank<rank>.json."""
+    torch.cuda.set_device(0)
+    dist.init_process_group('gloo', init_method=f'file://{path}/rendezvous',
+                            world_size=world, rank=rank)
+    try:
+        out = _rank_checks(rank, world, seed)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(path, f'rank{rank}.json'), 'w') as fh:
+        json.dump(out, fh)
+
+
+def _spawn_ranks(world, seed):
+    """Run ``_rank_main`` in ``world`` spawned processes on the card and
+    return their results; raises if a rank fails or they outlast
+    ``RANK_TIMEOUT_S``, and leaves no process behind."""
+    with tempfile.TemporaryDirectory() as path:
+        ctx = mp.spawn(_rank_main, args=(world, path, seed), nprocs=world,
+                       join=False)
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=1.0):
+                _require(time.monotonic() < deadline,
+                         f'the ranks did not finish in {RANK_TIMEOUT_S} s')
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        results = []
+        for r in range(world):
+            with open(os.path.join(path, f'rank{r}.json')) as fh:
+                results.append(json.load(fh))
+    return results
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -646,6 +934,7 @@ def main():
     forward_cuda._binning()
     backward_cuda._sweeps()
     backward_cuda._reduce()
+    segments._kernel()
     _log(f'build: {", ".join(p.name for p, _ in built.values())} in '
          f'{time.time() - t0:.1f} s')
     for name, (_, log) in built.items():
@@ -1051,11 +1340,13 @@ def main():
          f'{float(vg.grad.abs().max()):.6g} textures '
          f'{float(tg.grad.abs().max()):.6g}')
     prof = _step_profile(step, eyes)
+    segment_step_ms = None
     if prof is None:
         _log('training step profile: the profiler reported no device time '
              '(not measured)')
     else:
         dev_ms, wall_ms, by, step_ops = prof
+        segment_step_ms = by['segment_sum']
         step_ms = elapsed * 1e3 / len(eyes)
         _log(f'training step profile (torch.profiler, one sweep of '
              f'{len(eyes)} steps) on {smi}: per step {_fmt_ops(step_ops)}; '
@@ -1065,7 +1356,17 @@ def main():
              f'{100 * (1 - dev_ms / step_ms):.1f}%; per step '
              + ', '.join(f'{k} {v:.3f} ms ({100 * v / dev_ms:.1f}%)'
                          for k, v in by.items()))
-    del vg, tg
+    # two steps of one eye: the vertex gradient (the segmented sum) and the
+    # texture gradient bitwise equal
+    repeat = []
+    for _ in range(2):
+        step(eyes[0])
+        repeat.append((vg.grad.clone(), tg.grad.clone()))
+    _require(_grads_equal(*repeat), 'two training steps of the main path '
+             'gave different gradients')
+    _log('main path: two steps of one eye give bitwise-equal vertex and '
+         'texture gradients')
+    del vg, tg, repeat
 
     # ---- 8. a trainer ----
     mesh = nt.Mesh.from_obj(os.path.join(DATA, 'teapot.obj'), texture_size=2,
@@ -1271,6 +1572,337 @@ def main():
          f'{len(eyes) * lbs / elapsed:.2f} training images/s on {smi}; '
          f'launches {large_launches}; max |grad| {float(g.abs().max()):.6g}')
 
+    # ---- 13. long lines: the out-sweep at any line length ----
+    lv_s, lf_s = _sparse_scene(rng, 400)
+    tex_s = rng.uniform(0, 1, (lf_s.shape[0], 2, 2, 2, 3)).astype(np.float32)
+    vs_t = torch.as_tensor(lv_s[None], device=dev)
+    fs_t = torch.as_tensor(lf_s[None].astype(np.int64), device=dev)
+    ts_t = torch.as_tensor(tex_s[None], device=dev)
+    long_raster = 2 * LONG_OUT
+    long_times = {}
+    for mode in ('silhouettes', 'rgb'):
+        rgb_mode = mode == 'rgb'
+        s_long = RasterizeSettings(image_size=long_raster, eps=1e-3,
+                                   return_rgb=rgb_mode,
+                                   return_alpha=not rgb_mode,
+                                   return_depth=False)
+        fc_l, tx_l = _raster_inputs(lv_s, lf_s, tex_s, [eyes[1]],
+                                    long_raster, dev)
+        maps, grads = _bwd_scene(s_long, fc_l, tx_l if rgb_mode else None,
+                                 rng, dev)
+        args_l = _sweep_args(s_long, maps, grads)
+        plan = backward_cuda.outsweep_plan(
+            long_raster, rgb_mode, not rgb_mode,
+            backward_cuda._smem_limit(0))
+        t0 = time.perf_counter()
+        want = backward_cuda.outsweep_plain(*args_l)
+        want_in = backward_cuda.insweep_plain(*args_l)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        got, again = backward_cuda.outsweep(*args_l), backward_cuda.outsweep(
+            *args_l)
+        acc, acc2 = _accumulated(args_l), _accumulated(args_l)
+        torch.cuda.synchronize()
+        _require(bool(torch.equal(got, again)) and bool(torch.equal(acc, acc2)),
+                 f'long lines {mode}: an out-sweep repeat run differs')
+        err, ratio = _sum_check(f'long lines {mode} outsweep', got, want, 1)
+        err2, ratio2 = _sum_check(f'long lines {mode} outsweep accumulate',
+                                  acc, want_in + want, 1)
+        bworst['outsweep'] = max(bworst['outsweep'], err, err2)
+        long_times[mode] = _time_ms(lambda: backward_cuda.outsweep(*args_l),
+                                    reps=5)
+        _log(f'long lines, {mode} at bs 1, {long_raster}^2 ({lf_s.shape[0]} '
+             f'sparse faces, fill_back): out-sweep plan {plan}; write mode '
+             f'max abs err {err} ({ratio:.3g} x channel max), accumulated on '
+             f'the in-sweep {err2} ({ratio2:.3g} x); repeat runs bitwise '
+             f'equal; {long_times[mode]:.3f} ms (write mode) on {smi}; the '
+             f'plain sweeps took {plain_s:.1f} s')
+        del maps, grads, args_l, want, want_in, got, again, acc, acc2
+
+        # the training step through the Renderer, twice
+        r_long = nt.Renderer()
+        r_long.image_size = LONG_OUT
+        r_long.eye = eyes[1]
+        if rgb_mode:
+            def fn(vv, tt):
+                return r_long.render(vv, fs_t, tt)
+            leaves = (vs_t, ts_t)
+        else:
+            def fn(vv):
+                return r_long.render_silhouettes(vv, fs_t)
+            leaves = (vs_t,)
+        _reset_launches()
+        g1 = _grad_step(fn, leaves)
+        torch.cuda.synchronize()
+        long_launches = _launches()
+        g2 = _grad_step(fn, leaves)
+        _require(long_launches['outsweep'] >= 1 and _grads_ok(g1)
+                 and _grads_equal(g1, g2),
+                 f'long lines {mode} step: launches {long_launches}, or '
+                 'gradients missing, non-finite, zero or not repeatable')
+        _log(f'long lines, {mode} training step at {LONG_OUT}^2 AA '
+             f'({long_raster}^2 raster), bs 1: launches {long_launches}; '
+             'gradients finite, non-zero, bitwise equal on a repeat step')
+        del g1, g2
+
+    # a 2800 raster (render at 1400^2 AA) and an 8192 raster (render_rgbad
+    # at 4096^2 AA): training steps through the kernel
+    for out_size, method in ((1400, 'render'), (4096, 'render_rgbad')):
+        r_long = nt.Renderer()
+        r_long.image_size = out_size
+        r_long.eye = eyes[1]
+        call = getattr(r_long, method)
+
+        def fn(vv, tt):
+            return call(vv, fs_t, tt)
+
+        _reset_launches()
+        t0 = time.perf_counter()
+        g1 = _grad_step(fn, (vs_t, ts_t))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        long_launches = _launches()
+        g2 = _grad_step(fn, (vs_t, ts_t))
+        _require(long_launches['outsweep'] >= 1 and _grads_ok(g1)
+                 and _grads_equal(g1, g2),
+                 f'{method} at a {2 * out_size} raster: launches '
+                 f'{long_launches}, or gradients missing, non-finite, zero or '
+                 'not repeatable')
+        _log(f'long lines, {method} training step at {out_size}^2 AA '
+             f'({2 * out_size}^2 raster), bs 1: {step_s:.3f} s, launches '
+             f'{long_launches}; gradients finite, non-zero, bitwise equal '
+             'on a repeat step')
+        del g1, g2
+    torch.cuda.empty_cache()
+
+    # rounds forced at 512^2: a small crossing list, staged planes and
+    # planes read from device memory, against the plain version
+    maps, grads = _bwd_scene(s_all, fc4, tx4, rng, dev)
+    args4 = _sweep_args(s_all, maps, grads)
+    want = backward_cuda.outsweep_plain(*args4)
+    want_acc = backward_cuda.insweep_plain(*args4) + want
+    forced = []
+    for cap in FORCED_CAPS:
+        for staged in (True, False):
+            got = backward_cuda._outsweep(*args4, None, False, cap, staged)
+            again = backward_cuda._outsweep(*args4, None, False, cap, staged)
+            acc = backward_cuda.insweep(*args4)
+            backward_cuda._outsweep(*args4, acc, True, cap, staged)
+            torch.cuda.synchronize()
+            _require(bool(torch.equal(got, again)),
+                     f'forced rounds cap {cap}: repeat run differs')
+            err, ratio = _sum_check(f'forced rounds cap {cap}', got, want, 1)
+            err2, ratio2 = _sum_check(f'forced rounds cap {cap} accumulate',
+                                      acc, want_acc, 1)
+            bworst['outsweep'] = max(bworst['outsweep'], err, err2)
+            forced.append(f'cap {cap} staged {staged}: {ratio:.3g} / '
+                          f'{ratio2:.3g} x')
+    _log(f'forced rounds, teapot {RASTER}^2 bs 4 rgb + alpha (lines of up '
+         f'to {3 * RASTER} crossings): {"; ".join(forced)} channel max '
+         '(write / accumulated); repeat runs bitwise equal')
+    del maps, grads, args4, want, want_acc, got, again, acc
+
+    # ---- 14. deterministic scatters: the segmented sum ----
+    r8 = nt.Renderer()
+    r8.image_size = OUT_SIZE
+    r8.eye = np.array(eyes[::2], np.float32)
+    t8 = torch.as_tensor(rng.uniform(0, 1, (4, faces.shape[0], 8, 8, 8, 3))
+                         .astype(np.float32), device=dev)
+
+    def step8(vv, tt):
+        return r8.render(vv, f[:4], tt)
+
+    _reset_launches()
+    g1 = _grad_step(step8, (v[:4], t8))
+    torch.cuda.synchronize()
+    launches8 = _launches()
+    g2 = _grad_step(step8, (v[:4], t8))
+    _require(_grads_ok(g1) and _grads_equal(g1, g2),
+             'the ts 8 step\'s gradients are not finite, non-zero and '
+             'bitwise repeatable')
+    _require(launches8['segment_sum'] >= 2, 'the ts 8 step did not sum its '
+             f'vertex and texture gradients by segments: {launches8}')
+    ts8_ms = _time_ms(lambda: _grad_step(step8, (v[:4], t8)), reps=3)
+    _log(f'ts 8 training step, bs 4, {OUT_SIZE}^2 AA: vertex and texture '
+         f'gradients bitwise equal on a repeat step; {ts8_ms:.3f} ms a step '
+         f'on {smi}; launches {launches8}')
+    del g1, g2, t8
+
+    # the ts 8 texture gradient as the backward computes it on the card (its
+    # rows sorted by cell, then the segmented sum) against its plain version
+    # (index_add_ of the rows in order) on CPU copies of the same maps, then
+    # the sort of its rows timed at bs 4 and at the main shape (the bs 4
+    # maps repeated to batch 32)
+    s8 = RasterizeSettings(image_size=RASTER, eps=1e-3, return_alpha=False,
+                           return_depth=False)
+    tex8 = rng.uniform(0, 1, (faces.shape[0], 8, 8, 8, 3)).astype(np.float32)
+    fc8, tx8 = _raster_inputs(vertices, faces, tex8, eyes[::2], RASTER, dev)
+    maps8, grads8 = _bwd_scene(s8, fc8, tx8, rng, dev)
+    tex_maps = (maps8['face_index_map'], maps8['z'].permute(0, 2, 3, 1),
+                maps8['weights'].permute(0, 2, 3, 1), maps8['depth_map'],
+                grads8['g_rgb'])
+    shape8 = tuple(tx8.shape)
+    del fc8, tx8, maps8, grads8
+    got = tex.grad_textures(s8, *tex_maps, shape8)
+    again = tex.grad_textures(s8, *tex_maps, shape8)
+    want = tex.grad_textures(s8, *(x.cpu() for x in tex_maps), shape8)
+    torch.cuda.synchronize()
+    _require(bool(torch.equal(got, again)),
+             'ts 8 texture gradient: a repeat run differs')
+    got, want = got.cpu().reshape(-1, 3), want.reshape(-1, 3)
+    scale = want.abs().amax(0, keepdim=True)
+    err = (got - want).abs()
+    _require(float(scale.min()) > 0 and bool((err <= SEGMENT_TOL * scale).all()),
+             'ts 8 texture gradient: differs from the plain version by '
+             f'{float(err.max())} (column max {scale.tolist()})')
+    tex_err = float(err.max())
+    sort_ms = {}
+    for bs_t in (4, BATCH):
+        maps_t = [x.repeat((bs_t // 4,) + (1,) * (x.ndim - 1))
+                  for x in tex_maps]
+        shape_t = (bs_t,) + shape8[1:]
+        nseg_t = int(np.prod(shape_t[:-1]))
+        ids_t, rows_t = tex.corner_rows(s8, *maps_t, shape_t, nseg_t)
+        perm_t, offsets_t = segments.sort_segments(ids_t, nseg_t)
+        sort_ms[bs_t] = dict(
+            rows=ids_t.shape[0], covered=int(offsets_t[-1]),
+            sort_ms=_time_ms(lambda: segments.sort_segments(ids_t, nseg_t),
+                             reps=3),
+            sum_ms=_time_ms(lambda: segments.segment_sum(rows_t, perm_t,
+                                                         offsets_t), reps=3),
+            grad_ms=_time_ms(lambda: tex.grad_textures(s8, *maps_t, shape_t),
+                             reps=3))
+        del maps_t, ids_t, rows_t, perm_t, offsets_t
+        torch.cuda.empty_cache()
+    _log(f'ts 8 texture gradient, bs 4, {RASTER}^2: the card against the '
+         f'plain version on the CPU, max abs err {tex_err:.3g} '
+         f'({SEGMENT_TOL} x column max), repeat runs bitwise equal; '
+         + '; '.join(
+             f'bs {b}: {t["rows"]} rows ({t["covered"]} covered), '
+             f'sort_segments {t["sort_ms"]:.3f} ms, segment_sum '
+             f'{t["sum_ms"]:.3f} ms, grad_textures {t["grad_ms"]:.3f} ms'
+             for b, t in sort_ms.items()) + f' on {smi}')
+    del tex_maps, got, again, want, err
+
+    # the kernel against its plain version at the main path's vertex
+    # scatter (bs 32 x 4928 faces x 3 slots onto bs 32 x 1292 vertices) and
+    # at the ts 8 texture scatter's scale (8 corners of bs 4 x 512^2 pixels
+    # onto bs 4 x 4928 x 8^3 cells)
+    f_back = trainer._fill_back_faces(f.long())
+    nv = vertices.shape[0]
+    flat = (f_back + (torch.arange(BATCH, device=dev) * nv)[:, None, None]
+            ).reshape(-1)
+    seg_cases = [('vertices', flat, BATCH * nv)]
+    n8, nseg8 = 8 * 4 * RASTER * RASTER, 4 * nf2 * 8 ** 3
+    seg_cases.append(('ts 8 textures', torch.as_tensor(
+        rng.randint(0, nseg8 + nseg8 // 3, n8), device=dev), nseg8))
+    seg_worst = tex_err
+    for name, ids, nseg in seg_cases:
+        rows = torch.as_tensor(rng.normal(0, 1, (ids.shape[0], 3)).astype(
+            np.float32), device=dev)
+        perm, offsets = segments.sort_segments(ids, nseg)
+        got = segments.segment_sum(rows, perm, offsets)
+        again = segments.segment_sum(rows, perm, offsets)
+        want = segments.segment_sum_plain(rows, perm, offsets)
+        torch.cuda.synchronize()
+        _require(bool(torch.equal(got, again)),
+                 f'segment_sum {name}: repeat run differs')
+        scale = want.abs().amax(0, keepdim=True)
+        err = (got - want).abs()
+        _require(bool((err <= SEGMENT_TOL * scale).all()),
+                 f'segment_sum {name}: differs from the plain version by '
+                 f'{float(err.max())}')
+        seg_worst = max(seg_worst, float(err.max()))
+
+        def kern():
+            return segments.segment_sum(rows, perm, offsets)
+
+        def plain_fn():
+            return segments.segment_sum_plain(rows, perm, offsets)
+
+        def library_fn():
+            return torch.zeros((nseg + nseg // 3 + 1, 3), device=dev
+                               ).index_add_(0, ids, rows)
+
+        seg = dict(ms=_time_ms(kern, reps=20, warmup=2),
+                   plain_ms=_time_ms(plain_fn, reps=5),
+                   alone_ms=_kernel_device_ms(kern, 5, 'segment_sum_kernel'),
+                   library_ms=_time_ms(library_fn, reps=20, warmup=2))
+        used = int(offsets[-1])
+        # rows read once through their permutation, offsets, sums written
+        seg['bound_ms'], seg['bound_by'] = _bound(
+            (4 * 3 + 8) * used + 8 * (nseg + 1) + 4 * 3 * nseg, 3 * used)
+        _log(f'segment_sum {name}: {used} rows onto {nseg} segments, max abs '
+             f'err {float(err.max()):.3g} ({SEGMENT_TOL} x column max), '
+             f'repeat runs bitwise equal; kernel {seg["ms"]:.3f} ms, alone '
+             f'{_fmt_ms(seg["alone_ms"])}, plain {seg["plain_ms"]:.3f} ms, '
+             f'index_add_ {seg["library_ms"]:.3f} ms, bound '
+             f'{seg["bound_ms"]:.4f} ms by {seg["bound_by"]} on {smi}')
+        if name == 'vertices':
+            seg_main = seg
+        del rows, perm, offsets, got, again, want, err
+    del seg_cases, flat
+
+    # ---- 15. parallel on one card: 2 ranks over gloo ----
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(RANKS, args.seed)
+    par_s = time.perf_counter() - t0
+    for res in ranks:
+        for ts in (2, 8):
+            c = res[f'ts{ts}']
+            _require(c['images_equal'] and c['raster_images_equal']
+                     and c['finite'],
+                     f'rank {res["rank"]} ts {ts}: the face-sharded render '
+                     'differs from the one-process render')
+            _require(c['textures_equal'] and c['raster_textures_equal']
+                     and c['texture_grad_max'] > 0,
+                     f'rank {res["rank"]} ts {ts}: texture gradients differ')
+            _require(c['faces_ok'] and c['vertices_ok'],
+                     f'rank {res["rank"]} ts {ts}: face or vertex gradients '
+                     f'break the contract: {c}')
+            _require(all(c['launches'][k] >= 1 for k in TRAINING_KERNELS),
+                     f'rank {res["rank"]} ts {ts}: launches {c["launches"]}')
+        dp = res['dp']
+        _require(dp['losses'][2] < dp['losses'][0],
+                 f'rank {res["rank"]}: the data-parallel loss did not fall: '
+                 f'{dp["losses"]}')
+    _require(len({res['dp']['checksum'] for res in ranks}) == 1,
+             'the data-parallel ranks hold different parameters')
+    for res in ranks:
+        _log(f'parallel rank {res["rank"]} of {RANKS} (gloo, one card): '
+             + '; '.join(
+                 f'face-sharded render_rgbad ts {ts} bit-equal, textures '
+                 f'equal, faces {c["faces_differ"]:.4f} of elements differ '
+                 f'(max {c["faces_err"]:.3g} x max |grad|), vertices '
+                 f'{c["vertices_differ"]:.4f} (max {c["vertices_err"]:.3g} '
+                 f'x), launches {c["launches"]}'
+                 for ts, c in ((2, res['ts2']), (8, res['ts8'])))
+             + f'; data parallel, {res["dp"]["rows"]} rows a rank: loss '
+             + ' '.join(f'{x:.2f}' for x in res['dp']['losses']))
+    _log(f'parallel phase: {RANKS} spawned ranks, {par_s:.1f} s')
+
+    # ---- 16. spatial face order: one timed forward sweep each ----
+    sweep_ms = {}
+    for ordered in (False, True):
+        m = nt.Mesh.from_obj(os.path.join(DATA, 'teapot.obj'),
+                             texture_size=2, seed=args.seed,
+                             spatial_order=ordered)
+        with torch.no_grad():
+            mv, mf, mt = m.get_batch(BATCH)
+            renderer.render(mv, mf, mt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for eye in eyes:
+                renderer.eye = eye
+                renderer.render(mv, mf, mt)
+            torch.cuda.synchronize()
+        sweep_ms[ordered] = (time.perf_counter() - t0) * 1e3 / len(eyes)
+    _log(f'spatial order: forward sweep of {len(eyes)} renders, batch '
+         f'{BATCH}, {OUT_SIZE}^2 AA: {sweep_ms[False]:.3f} ms a render in '
+         f'file order, {sweep_ms[True]:.3f} ms with Mesh(spatial_order=True) '
+         f'on {smi} (one sweep each, no claim)')
+
     sources = {
         'forward_shaded': ('neural_renderer_torch/csrc/forward_shaded.cu',
                            'neural_renderer_tpu/rasterize/'
@@ -1288,6 +1920,16 @@ def main():
                         'neural_renderer_tpu/rasterize/backward_pallas.py:867',
                         bworst['face_reduce'], launches),
     }
+    _log(json.dumps({'segment_sum': {
+        'name': 'segment_sum', 'route': 'cuda',
+        'source': 'neural_renderer_torch/csrc/segment_sum.cu',
+        'replaces': 'XLA code, not a TPU kernel: neural_renderer_tpu/ops/'
+                    'vertices_to_faces.py:57-93 and neural_renderer_tpu/'
+                    'rasterize/texture.py:258-285',
+        'launches': launches['segment_sum'],
+        'launches_per_step': launches['segment_sum'] / len(eyes),
+        'max_abs_err': seg_worst, 'step_profile_ms': segment_step_ms,
+        'ts8_texture_scatter': sort_ms, **seg_main}}))
     _log(json.dumps({'binning': {
         'name': 'bin_faces', 'route': 'cuda',
         'source': 'neural_renderer_torch/csrc/bin_faces.cu',

@@ -12,9 +12,12 @@ backward through ``torch.autograd`` (the K5 sweeps,
 ``csrc/backward_sweeps.cu``; the per-face reduction with the K6 texture
 cells, ``csrc/face_reduce.cu``; K7 depth and the exact background
 gradient), behind the reference's flat API, plus the trainable ``Mesh``, the
-custom ``Adam``, and ``measure_scene`` / ``tune`` over the index-and-depth
-z-buffer ``csrc/forward_index.cu``.  ``parallel``, OBJ saving and the
-examples are not ported yet (ROADMAP Queue 1).  The package imports no JAX;
+custom ``Adam`` and its functional ``adam``, ``measure_scene`` / ``tune``
+over the index-and-depth z-buffer ``csrc/forward_index.cu``, batch and
+face-axis parallelism over ``torch.distributed`` (``parallel``), spatial
+face order, OBJ loading (with the native parser) and saving, and the image
+helpers.  The examples are not ported yet (ROADMAP.md).  The
+package imports no JAX;
 ``convert`` carries a JAX ``Renderer``'s settings, a JAX ``Mesh`` and numpy
 mesh arrays over.
 
@@ -34,6 +37,7 @@ from neural_renderer_torch.ops.transforms import (
 )
 from neural_renderer_torch.ops.lighting import lighting
 from neural_renderer_torch.ops.vertices_to_faces import vertices_to_faces
+from neural_renderer_torch.ops.spatial import face_spatial_order, spatial_sort
 from neural_renderer_torch.rasterize.config import (
     DEFAULT_ANTI_ALIASING,
     DEFAULT_BACKGROUND_COLOR,
@@ -49,12 +53,18 @@ from neural_renderer_torch.rasterize.api import (
     rasterize_depth,
     rasterize_rgbad,
     rasterize_silhouettes,
+    use_unsafe_rasterizer,
 )
 from neural_renderer_torch.scene.mesh import Mesh
 from neural_renderer_torch.scene.renderer import Renderer
-from neural_renderer_torch.optim import Adam
+from neural_renderer_torch.optim import Adam, adam
 from neural_renderer_torch.tune import measure_scene, tune
-from neural_renderer_torch.io.obj import load_obj, load_mtl
+from neural_renderer_torch.io.obj import (
+    create_texture_image,
+    load_mtl,
+    load_obj,
+    save_obj,
+)
 from neural_renderer_torch.convert import (
     arrays_from_numpy,
     mesh_from_jax,
@@ -65,12 +75,12 @@ __version__ = '0.1.0'
 
 __all__ = [
     'cross', 'get_points_from_angles', 'look', 'look_at', 'perspective',
-    'lighting', 'vertices_to_faces',
+    'lighting', 'vertices_to_faces', 'face_spatial_order', 'spatial_sort',
     'RasterizeSettings', 'Rasterize', 'rasterize', 'rasterize_depth',
-    'rasterize_rgbad', 'rasterize_silhouettes',
+    'rasterize_rgbad', 'rasterize_silhouettes', 'use_unsafe_rasterizer',
     'DEFAULT_IMAGE_SIZE', 'DEFAULT_ANTI_ALIASING', 'DEFAULT_NEAR',
     'DEFAULT_FAR', 'DEFAULT_EPS', 'DEFAULT_BACKGROUND_COLOR',
-    'Mesh', 'Renderer', 'Adam', 'tune', 'measure_scene',
-    'load_obj', 'load_mtl',
+    'Mesh', 'Renderer', 'Adam', 'adam', 'tune', 'measure_scene',
+    'load_obj', 'load_mtl', 'save_obj', 'create_texture_image',
     'renderer_from_jax', 'arrays_from_numpy', 'mesh_from_jax',
 ]

@@ -7,6 +7,9 @@ with ``ctypes``.  The library's file name carries a hash of the source, of
 the headers beside it (``csrc/*.cuh``) and of the flags, so an edited source
 or header is rebuilt and a built one is reused.
 
+Host code under ``csrc/`` (``*.cpp``: the OBJ parser) is built the same
+way by ``g++`` (``build_host``).
+
 Flags: ``--fmad=false`` keeps every multiply and add separately rounded, as
 PyTorch's elementwise kernels round them, so the kernels agree with their
 plain PyTorch versions bit for bit; without it a fused multiply-add in an
@@ -40,12 +43,35 @@ def _nvcc():
     return path
 
 
-def _target(name):
-    src = _CSRC / f'{name}.cu'
-    headers = b''.join(h.read_bytes() for h in sorted(_CSRC.glob('*.cuh')))
-    digest = hashlib.sha256(src.read_bytes() + headers
-                            + ' '.join(_FLAGS).encode()).hexdigest()[:16]
+_HOST_FLAGS = ('-O2', '-shared', '-fPIC')
+
+
+def _target(name, suffix='.cu', flags=_FLAGS, headers='*.cuh'):
+    src = _CSRC / f'{name}{suffix}'
+    head = b''.join(h.read_bytes() for h in sorted(_CSRC.glob(headers)))
+    digest = hashlib.sha256(src.read_bytes() + head
+                            + ' '.join(flags).encode()).hexdigest()[:16]
     return src, _BUILD_DIR / f'lib{name}-{digest}.so'
+
+
+def build_host(name):
+    """Compile the host source ``csrc/<name>.cpp`` with ``g++`` into the
+    build directory (reused while the source and flags are unchanged) and
+    return the library's path; raises if ``g++`` is missing or fails."""
+    src, lib = _target(name, '.cpp', _HOST_FLAGS, '*.h')
+    if lib.exists():
+        return lib
+    gxx = shutil.which('g++')
+    if gxx is None:
+        raise RuntimeError('g++ not found: cannot build ' + str(src))
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
+    proc = subprocess.run([gxx, *_HOST_FLAGS, '-o', str(tmp), str(src)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f'g++ failed to build {src}:\n{proc.stderr}')
+    os.replace(tmp, lib)
+    return lib
 
 
 def build_all(names):

@@ -78,8 +78,12 @@ def arrays_from_numpy(vertices, faces, textures=None, device=None):
 def mesh_from_jax(m, device=None):
     """A ``neural_renderer_torch.Mesh`` holding the arrays of the JAX mesh
     ``m`` (duck-typed: ``vertices``, ``textures``, ``faces``,
-    ``lr_vertices``, ``lr_textures``), on ``device``."""
+    ``lr_vertices``, ``lr_textures`` and ``face_order``, the permutation a
+    spatially ordered mesh carries), on ``device``."""
     textures = None if m.textures is None else np.asarray(m.textures)
-    return Mesh(np.asarray(m.vertices), textures, np.asarray(m.faces),
+    mesh = Mesh(np.asarray(m.vertices), textures, np.asarray(m.faces),
                 lr_vertices=m.lr_vertices, lr_textures=m.lr_textures,
                 device=device)
+    order = getattr(m, 'face_order', None)
+    mesh.face_order = None if order is None else np.asarray(order, np.int32)
+    return mesh

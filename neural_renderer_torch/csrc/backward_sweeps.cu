@@ -34,8 +34,8 @@
 //      crossing() in the plain operand order (covered & valid & d1_in ==
 //      the pixel's own d1) and the block appends the active (r, e) to a
 //      crossing list in shared memory, in ascending (r, e) order, by one
-//      block prefix sum.  Each entry carries what is constant along its sweep,
-//      computed once: d1_cross, [lo, hi], f0 = (X1-X0)/(X1-d0) * 2/is,
+//      block prefix sum.  Each entry carries what is constant along its
+//      sweep, computed once: d1_cross, f0 = (X1-X0)/(X1-d0) * 2/is,
 //      f1 = (X1-X0)/(d0-X0) * 2/is and the flags X1 != d0, X0 != d0.  A
 //      line with no active crossing stops here (in accumulate mode it
 //      writes nothing).
@@ -59,11 +59,19 @@
 //   4. The block adds all crossings' sums to `out` at once, a thread per
 //      crossing, whose old values it fetched before the sweep, so no warp
 //      waits on a read-modify-write of device memory.
-// There is no capacity (no row cap, schedule or budget): the list holds
-// the 3 * is crossings a line can have (is <= 2504 at 227 KB of shared
-// memory, rgb and alpha drawn).  No wgmma or TMA: there is no matrix
-// product here (the TPU kernel's one-hot contractions stood in for gathers),
-// and a line's planes are a few KB that plain loads stage.
+// Any line length (is < 2^24): the list holds `cap` entries, and a line
+// with more active crossings (at most 3 * is) is taken in rounds: detection
+// stops before the first position whose crossings do not fit, steps 3-4
+// run on the round, and detection resumes at that position.  The host
+// (backward_cuda.outsweep_plan) sizes the list to what the device's opt-in
+// shared memory leaves after the staged planes, so a line of the main path
+// (is = 512, at most 1536 crossings) is one round.  Where the planes do not
+// fit (32 bytes per position with rgb and alpha drawn, about 6,200
+// positions) they are read from device memory instead, where L2 holds the
+// line, with zeros off the line as staged; both variants give the same
+// bits.  No wgmma or TMA: there is no matrix product here (the TPU
+// kernel's one-hot contractions stood in for gathers), and a line's planes
+// are a few KB that plain loads stage.
 //
 // Numerics.  Every expression that decides whether a term exists (the
 // crossing, d1_in == d1, lo and hi, the in-sweep's interval and gate) repeats
@@ -78,10 +86,16 @@
 // d1_out toward the border); the sign that picks +-eps is exact either way.
 // Each term moves by a few ulp and the sums run in another order than
 // torch.sum, so it is held to 1e-4 x the channel's max |value| (SUM_TOL of
-// chip_smoke.py).
+// chip_smoke.py).  __fdividef returns 0 for a divisor above 2^126; here
+// |f * delta| <= 2 |X1 - X0| / |X1 - d0| with |delta| <= is, and |X1 - d0|
+// is at least half an ulp of is where the term is used, so the divisor
+// stays far below 2^126 at any line length unless an edge spans ~1e30
+// pixels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -318,14 +332,19 @@ __device__ __forceinline__ void block_scan2(int v0, int v1, int* s_scan,
 }
 
 // Crossing-list entry key: edge e, the two term flags, the sweep direction,
-// the signs of the two eps offsets, the in-pixel r and the first swept
-// position q0 (12 bits each, so is <= 4096).
+// the signs of the two eps offsets and the in-pixel r (24 bits, so is <
+// 2^24).  The first swept position is d1_out = r + dir: an active
+// crossing's d1_in is r, and d1_out lies on the line.
 constexpr int kUse0 = 1 << 2, kUse1 = 1 << 3, kUp = 1 << 4;
 constexpr int kEps0 = 1 << 5, kEps1 = 1 << 6;
-constexpr int kRShift = 7, kQShift = 19, kPosMask = 0xfff;
+constexpr int kRShift = 7;
+constexpr int kMaxLine = 1 << 24;
 // zeros staged before and after the line: a sweep runs whole chunks of 32
 // positions past its end, where dg is +-0 (or NaN) and the gate stays shut
 constexpr int kPad = 32;
+// the least list capacity: the three crossings of one position
+constexpr int kMinCap = 3;
+constexpr int kMaxDevices = 64;
 
 // One active crossing's list entry: what is constant along its sweep.
 struct Entry {
@@ -346,34 +365,40 @@ __device__ __forceinline__ Entry entry_of(const Walk& w, const Cross& cr,
   // has the sign of f * dir all along the sweep
   en.key = e | (w.X1 != d0 ? kUse0 : 0) | (w.X0 != d0 ? kUse1 : 0) |
            (cr.dir > 0.0f ? kUp : 0) | (en.f0 * cr.dir > 0.0f ? kEps0 : 0) |
-           (en.f1 * cr.dir > 0.0f ? kEps1 : 0) | (r << kRShift) |
-           ((cr.dir > 0.0f ? lo : hi) << kQShift);
+           (en.f1 * cr.dir > 0.0f ? kEps1 : 0) | (r << kRShift);
   en.items = (hi - lo + 32) >> 5;
   return en;
 }
 
 // Out-sweep.  One block per (line L, axis a, batch b).  With `accumulate`
-// the sums are added to `out` (out = out + sum); otherwise written.
-template <bool RGB, bool ALPHA>
+// the sums are added to `out` (out = out + sum); otherwise written.  The
+// crossing list holds `cap` entries: with ROUNDS, a line with more active
+// crossings is taken in rounds of at most `cap`, each detected, swept and
+// written before detection resumes after its last crossing; without it the
+// list holds a whole line (cap >= 3 * is) and the round machinery is
+// compiled out.  STAGED keeps the line's planes in shared memory;
+// otherwise they are read from device memory, where L2 holds the line.
+template <bool RGB, bool ALPHA, bool STAGED, bool ROUNDS>
 __global__ void __launch_bounds__(kOutThreads)
 outsweep_kernel(const float* __restrict__ xy, const int* __restrict__ fim,
                 const float* __restrict__ rgb, Strides rs,
                 const float* __restrict__ grgb, Strides gs,
                 const float* __restrict__ galpha, int is, float eps,
-                float* __restrict__ out, long long bstride, int accumulate) {
+                float* __restrict__ out, long long bstride, int accumulate,
+                int cap) {
   extern __shared__ float2 smem2[];
-  const int cap = 3 * is;              // the most active crossings a line has
-  const int span = is + 2 * kPad;      // a staged line with its zeros
+  const int span = STAGED ? is + 2 * kPad : 0;  // a staged line, its zeros
   float2* s_v = smem2;                 // (rgb_c, grad rgb_c) [span][3]
   float2* s_ag = s_v + (RGB ? 3 * span : 0);   // (alpha, grad alpha) [span]
-  float* s_d1c = (float*)(s_ag + (ALPHA ? span : 0));   // the crossing
-  float* s_f0 = s_d1c + cap;           // list: d1_cross, the two hoisted
-  float* s_f1 = s_f0 + cap;            // factors (then the two sums),
-  int* s_key = (int*)(s_f1 + cap);     // the key,
+  float* s_d1c = (float*)(s_ag + (ALPHA ? span : 0));   // one round's
+  float* s_f0 = s_d1c + cap;           // crossing list: d1_cross, the two
+  float* s_f1 = s_f0 + cap;            // hoisted factors (then the two
+  int* s_key = (int*)(s_f1 + cap);     // sums), the key,
   int* s_item = s_key + cap;           // the first item, [cap + 1]
   __shared__ int s_scan[2 * kWarps];
   __shared__ int s_seg_c[2 * kWarps];      // shared crossings' partials,
   __shared__ float s_seg_s[4 * kWarps];    // two slots per warp
+  __shared__ int s_stop[3];    // a full round's end: position, slot, item
 
   const int L = blockIdx.x;
   const int a = blockIdx.y;
@@ -382,244 +407,320 @@ outsweep_kernel(const float* __restrict__ xy, const int* __restrict__ fim,
   const float fis = (float)is;
   const float d0 = (float)L;
   const float* xy_b = xy + (size_t)b * 6 * plane;
+  const int* fim_b = fim + (size_t)b * plane;
   // pixel of line position r
   auto pixel = [&](int r) -> size_t {
     return a == 0 ? (size_t)r * is + L : (size_t)L * is + r;
   };
-  if (threadIdx.x < 2 * kWarps) s_seg_c[threadIdx.x] = -1;
-
-  // 1. detect the active crossings and append them, (r, e) ascending:
-  // thread t tests line pixels r0 .. r0 + kPer - 1 of each group
-  int n = 0, nitems = 0;
-  for (int base = 0; base < is; base += kPer * kOutThreads) {
-    const int r0 = base + kPer * threadIdx.x;
-    int win[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      win[j] = r0 + j < is ? fim[(size_t)b * plane + pixel(r0 + j)] : -1;
-    float ppx[kPer][3], ppy[kPer][3];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      if (win[j] >= 0) load_face(xy_b + pixel(r0 + j), plane, fis, ppx[j],
-                                 ppy[j]);
-    int bits = 0, cnt = 0, total = 0;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      if (win[j] < 0) continue;
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        const Walk w = edge_coords(ppx[j], ppy[j], e, a);
-        const Cross cr = crossing(w, a, d0, fis);
-        if (!(cr.valid && cr.d1_in == (float)(r0 + j))) continue;
-        bits |= 1 << (3 * j + e);
-        ++cnt;
-        total += entry_of(w, cr, r0 + j, e, d0, fis).items;
-      }
+  // the (value, gradient) pairs of line position q from device memory:
+  // alpha, then the 3 rgb channels; zeros off the line, as staged
+  auto load = [&](int q, float2& ag, float2& v0, float2& v1, float2& v2) {
+    ag = v0 = v1 = v2 = make_float2(0.0f, 0.0f);
+    if (q < 0 || q >= is) return;
+    const size_t p = pixel(q);
+    const int y = a == 0 ? q : L;
+    const int x = a == 0 ? L : q;
+    if (ALPHA)
+      ag = make_float2(fim_b[p] >= 0 ? 1.0f : 0.0f,
+                       galpha[(size_t)b * plane + p]);
+    if (RGB) {
+      v0 = make_float2(rgb[at(rs, b, 0, y, x)], grgb[at(gs, b, 0, y, x)]);
+      v1 = make_float2(rgb[at(rs, b, 1, y, x)], grgb[at(gs, b, 1, y, x)]);
+      v2 = make_float2(rgb[at(rs, b, 2, y, x)], grgb[at(gs, b, 2, y, x)]);
     }
-    if (!accumulate) {
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        if (r0 + j >= is) continue;
-        float* o = out + (size_t)b * bstride + pixel(r0 + j);
-#pragma unroll
-        for (int e = 0; e < 3; ++e) {
-          if ((bits >> (3 * j + e)) & 1) continue;
-          const int ch = 2 * (a * 3 + e);
-          o[ch * plane] = 0.0f;
-          o[(ch + 1) * plane] = 0.0f;
-        }
-      }
+  };
+  // the pairs of line position q, -kPad <= q < is + kPad
+  auto fetch = [&](int q, float2& ag, float2& v0, float2& v1, float2& v2) {
+    if (!STAGED) {
+      load(q, ag, v0, v1, v2);
+      return;
     }
-    int slot, item, block_cnt, block_items;
-    block_scan2(cnt, total, s_scan, slot, item, block_cnt, block_items);
-    slot += n;
-    item += nitems;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        if (!((bits >> (3 * j + e)) & 1)) continue;
-        const Walk w = edge_coords(ppx[j], ppy[j], e, a);
-        const Entry en = entry_of(w, crossing(w, a, d0, fis), r0 + j, e, d0,
-                                  fis);
-        s_key[slot] = en.key;
-        s_d1c[slot] = en.d1c;
-        s_f0[slot] = en.f0;
-        s_f1[slot] = en.f1;
-        s_item[slot] = item;
-        item += en.items;
-        ++slot;
-      }
+    ag = v0 = v1 = v2 = make_float2(0.0f, 0.0f);
+    if (ALPHA) ag = s_ag[kPad + q];
+    if (RGB) {
+      const float2* v = s_v + (kPad + q) * 3;
+      v0 = v[0];
+      v1 = v[1];
+      v2 = v[2];
     }
-    n += block_cnt;
-    nitems += block_items;
-  }
-  if (n == 0) return;                  // the same n in every thread
-
-  // 2. stage the line's value and gradient planes, zeros around them
-  if (threadIdx.x == 0) s_item[n] = nitems;
-  for (int i = threadIdx.x; i < 2 * kPad; i += kOutThreads) {
-    const int q = i < kPad ? i : is + i;
-    if (RGB)
-      for (int c = 0; c < 3; ++c) s_v[q * 3 + c] = make_float2(0.0f, 0.0f);
-    if (ALPHA) s_ag[q] = make_float2(0.0f, 0.0f);
-  }
-  for (int base = 0; base < is; base += kPer * kOutThreads) {
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int r = base + kPer * threadIdx.x + j;
-      if (r >= is) continue;
-      const size_t p = pixel(r);
-      const int y = a == 0 ? r : L;
-      const int x = a == 0 ? L : r;
-      if (ALPHA)
-        s_ag[kPad + r] = make_float2(
-            fim[(size_t)b * plane + p] >= 0 ? 1.0f : 0.0f,
-            galpha[(size_t)b * plane + p]);
-      if (RGB) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          s_v[(kPad + r) * 3 + c] = make_float2(rgb[at(rs, b, c, y, x)],
-                                                grgb[at(gs, b, c, y, x)]);
-      }
-    }
-  }
-  __syncthreads();
-  // the in-pixel's two channels of crossing threadIdx.x, fetched now so the
-  // sweep hides their latency; added to in step 4
+  };
+  // the in-pixel's two channels of crossing c
   auto out_of = [&](int c) -> float* {
     const int key = s_key[c];
     return out + (size_t)b * bstride + 2 * (a * 3 + (key & 3)) * plane +
-           pixel((key >> kRShift) & kPosMask);
+           pixel(key >> kRShift);
   };
-  float pre0 = 0.0f, pre1 = 0.0f;
-  if (accumulate && threadIdx.x < n) {
-    const float* o = out_of(threadIdx.x);
-    pre0 = o[0];
-    pre1 = o[plane];
-  }
 
-  // 3. sweep: warp w takes items [beg, end) of the line's nitems
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int beg = (int)((long long)nitems * warp / kWarps);
-  const int end = (int)((long long)nitems * (warp + 1) / kWarps);
-  if (beg < end) {
-    int c = 0, c_hi = n - 1;           // the crossing of item beg
-    while (c < c_hi) {
-      const int mid = (c + c_hi + 1) >> 1;
-      if (s_item[mid] <= beg) c = mid; else c_hi = mid - 1;
-    }
-    for (int it = beg; it < end; ++c) {
-      const int c_beg = s_item[c];
-      const int c_end = s_item[c + 1];
-      const int stop = min(end, c_end);
-      const int key = s_key[c];
-      const int r = (key >> kRShift) & kPosMask;
-      const bool use0 = key & kUse0, use1 = key & kUse1;
-      const float e0 = (key & kEps0) ? eps : -eps;
-      const float e1 = (key & kEps1) ? eps : -eps;
-      const float d1c = s_d1c[c], f0 = s_f0[c], f1 = s_f1[c];
-      const int step = (key & kUp) ? 32 : -32;
-      const float a_in = ALPHA ? s_ag[kPad + r].x : 0.0f;
-      float r0 = 0.0f, r1 = 0.0f, r2 = 0.0f;
-      if (RGB) {
-        r0 = s_v[(kPad + r) * 3].x;
-        r1 = s_v[(kPad + r) * 3 + 1].x;
-        r2 = s_v[(kPad + r) * 3 + 2].x;
+  int start = 0;           // where detection resumes
+  bool staged = false;
+  for (;;) {
+    // 1. detect the active crossings from `start` on and append them, (r,
+    // e) ascending, until the list is full: thread t tests line pixels r0
+    // .. r0 + kPer - 1 of each group
+    int n = 0, nitems = 0, next = is;
+    for (int base = start; base < is; base += kPer * kOutThreads) {
+      const int r0 = base + kPer * threadIdx.x;
+      int win[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        win[j] = r0 + j < is ? fim_b[pixel(r0 + j)] : -1;
+      float ppx[kPer][3], ppy[kPer][3];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        if (win[j] >= 0) load_face(xy_b + pixel(r0 + j), plane, fis, ppx[j],
+                                   ppy[j]);
+      int bits = 0, cnt = 0, total = 0, cnt_j[kPer], tot_j[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        cnt_j[j] = 0;
+        tot_j[j] = 0;
+        if (win[j] < 0) continue;
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+          const Walk w = edge_coords(ppx[j], ppy[j], e, a);
+          const Cross cr = crossing(w, a, d0, fis);
+          if (!(cr.valid && cr.d1_in == (float)(r0 + j))) continue;
+          bits |= 1 << (3 * j + e);
+          ++cnt_j[j];
+          tot_j[j] += entry_of(w, cr, r0 + j, e, d0, fis).items;
+        }
+        cnt += cnt_j[j];
+        total += tot_j[j];
       }
-      // positions q0, q0 +- 1, ... from the crossing's first item on
-      int q = ((key >> kQShift) & kPosMask) + (it - c_beg) * step +
-              (step > 0 ? lane : -lane);
-      float qf = (float)q;
-      const float stepf = (float)step;
-      float s0 = 0.0f, s1 = 0.0f;
-      for (; it < stop; ++it, q += step, qf += stepf) {
-        float dg = 0.0f;
-        if (ALPHA) {
-          const float2 ag = s_ag[kPad + q];
-          dg = (ag.x - a_in) * ag.y;
+      if (!accumulate) {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          if (r0 + j >= is) continue;
+          float* o = out + (size_t)b * bstride + pixel(r0 + j);
+#pragma unroll
+          for (int e = 0; e < 3; ++e) {
+            if ((bits >> (3 * j + e)) & 1) continue;
+            const int ch = 2 * (a * 3 + e);
+            o[ch * plane] = 0.0f;
+            o[(ch + 1) * plane] = 0.0f;
+          }
         }
-        if (RGB) {
-          const float2* v = s_v + (kPad + q) * 3;
-          const float2 v0 = v[0], v1 = v[1], v2 = v[2];
-          const float t0 = (v0.x - r0) * v0.y;
-          const float t1 = (v1.x - r1) * v1.y;
-          const float t2 = (v2.x - r2) * v2.y;
-          dg = ALPHA ? dg + (t0 + t1 + t2) : t0 + t1 + t2;
+      }
+      if (ROUNDS && threadIdx.x == 0) s_stop[0] = kMaxLine;
+      int slot, item, block_cnt, block_items;
+      block_scan2(cnt, total, s_scan, slot, item, block_cnt, block_items);
+      slot += n;
+      item += nitems;
+      // a full list ends the round before the first position whose
+      // crossings do not all fit (the same decision in every thread)
+      const bool full = ROUNDS && n + block_cnt > cap;
+      int stop = is;
+      if (full) {
+        int sl = slot, it = item;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          if (cnt_j[j] == 0) continue;
+          if (sl + cnt_j[j] > cap) {
+            stop = r0 + j;
+            break;
+          }
+          sl += cnt_j[j];
+          it += tot_j[j];
         }
-        const float delta = qf - d1c;
-        const float c0 = __fdividef(-dg, f0 * delta + e0);
-        const float c1 = __fdividef(-dg, f1 * delta + e1);
-        const bool open = dg > 0.0f;
-        s0 = (open && use0) ? s0 + c0 : s0;
-        s1 = (open && use1) ? s1 + c1 : s1;
+        if (stop < is) atomicMin(&s_stop[0], stop);
+        __syncthreads();
+        if (stop == s_stop[0]) {
+          s_stop[1] = sl;
+          s_stop[2] = it;
+        }
+        __syncthreads();
+        stop = s_stop[0];
       }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s0 = s0 + __shfl_down_sync(kFull, s0, off);
-        s1 = s1 + __shfl_down_sync(kFull, s1, off);
+      for (int j = 0; j < kPer; ++j) {
+        if (ROUNDS && r0 + j >= stop) break;
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+          if (!((bits >> (3 * j + e)) & 1)) continue;
+          const Walk w = edge_coords(ppx[j], ppy[j], e, a);
+          const Entry en = entry_of(w, crossing(w, a, d0, fis), r0 + j, e,
+                                    d0, fis);
+          s_key[slot] = en.key;
+          s_d1c[slot] = en.d1c;
+          s_f0[slot] = en.f0;
+          s_f1[slot] = en.f1;
+          s_item[slot] = item;
+          item += en.items;
+          ++slot;
+        }
       }
-      if (lane == 0) {
-        if (c_beg >= beg && c_end <= end) {
-          // the warp holds the whole crossing, whose factors only it reads
-          s_f0[c] = s0;
-          s_f1[c] = s1;
-        } else {
-          // a crossing shared with the warp before (slot 0) or after (1)
-          const int i = 2 * warp + (c_beg < beg ? 0 : 1);
-          s_seg_c[i] = c;
-          s_seg_s[2 * i] = s0;
-          s_seg_s[2 * i + 1] = s1;
+      if (full) {
+        n = s_stop[1];
+        nitems = s_stop[2];
+        next = stop;
+        break;
+      }
+      n += block_cnt;
+      nitems += block_items;
+    }
+    if (n == 0) return;                // the same n in every thread
+
+    // 2. stage the line's value and gradient planes once, zeros around them
+    if (STAGED && !staged) {
+      staged = true;
+      for (int i = threadIdx.x; i < 2 * kPad; i += kOutThreads) {
+        const int q = i < kPad ? i : is + i;
+        if (RGB)
+          for (int c = 0; c < 3; ++c) s_v[q * 3 + c] = make_float2(0.0f, 0.0f);
+        if (ALPHA) s_ag[q] = make_float2(0.0f, 0.0f);
+      }
+      for (int base = 0; base < is; base += kPer * kOutThreads) {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int r = base + kPer * threadIdx.x + j;
+          if (r >= is) continue;
+          float2 ag, v0, v1, v2;
+          load(r, ag, v0, v1, v2);
+          if (ALPHA) s_ag[kPad + r] = ag;
+          if (RGB) {
+            s_v[(kPad + r) * 3] = v0;
+            s_v[(kPad + r) * 3 + 1] = v1;
+            s_v[(kPad + r) * 3 + 2] = v2;
+          }
         }
       }
     }
-  }
-  __syncthreads();
-  // the shared crossings: the thread of each one's first slot adds the
-  // partials of its later slots in warp (item) order
-  if (threadIdx.x < 2 * kWarps) {
-    const int i0 = threadIdx.x;
-    const int c = s_seg_c[i0];
-    int prev = i0 - 1;
-    while (prev >= 0 && s_seg_c[prev] < 0) --prev;
-    if (c >= 0 && (prev < 0 || s_seg_c[prev] != c)) {
-      float t0 = s_seg_s[2 * i0], t1 = s_seg_s[2 * i0 + 1];
-      for (int i = i0 + 1; i < 2 * kWarps; ++i) {
-        const int ci = s_seg_c[i];
-        if (ci < 0) continue;
-        if (ci != c) break;
-        t0 = t0 + s_seg_s[2 * i];
-        t1 = t1 + s_seg_s[2 * i + 1];
+    if (threadIdx.x == 0) s_item[n] = nitems;
+    if (threadIdx.x < 2 * kWarps) s_seg_c[threadIdx.x] = -1;
+    __syncthreads();
+    // the in-pixel's two channels of crossing threadIdx.x, fetched now so
+    // the sweep hides their latency; added to in step 4
+    float pre0 = 0.0f, pre1 = 0.0f;
+    if (accumulate && threadIdx.x < n) {
+      const float* o = out_of(threadIdx.x);
+      pre0 = o[0];
+      pre1 = o[plane];
+    }
+
+    // 3. sweep: warp w takes items [beg, end) of the round's nitems
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int beg = (int)((long long)nitems * warp / kWarps);
+    const int end = (int)((long long)nitems * (warp + 1) / kWarps);
+    if (beg < end) {
+      int c = 0, c_hi = n - 1;         // the crossing of item beg
+      while (c < c_hi) {
+        const int mid = (c + c_hi + 1) >> 1;
+        if (s_item[mid] <= beg) c = mid; else c_hi = mid - 1;
       }
-      s_f0[c] = t0;
-      s_f1[c] = t1;
+      for (int it = beg; it < end; ++c) {
+        const int c_beg = s_item[c];
+        const int c_end = s_item[c + 1];
+        const int stop = min(end, c_end);
+        const int key = s_key[c];
+        const int r = key >> kRShift;
+        const bool up = key & kUp;
+        const bool use0 = key & kUse0, use1 = key & kUse1;
+        const float e0 = (key & kEps0) ? eps : -eps;
+        const float e1 = (key & kEps1) ? eps : -eps;
+        const float d1c = s_d1c[c], f0 = s_f0[c], f1 = s_f1[c];
+        const int step = up ? 32 : -32;
+        float2 own_a, own0, own1, own2;
+        fetch(r, own_a, own0, own1, own2);
+        const float a_in = own_a.x;
+        const float r0 = own0.x, r1 = own1.x, r2 = own2.x;
+        // positions d1_out, d1_out +- 1, ... from the crossing's first item
+        int q = r + (up ? 1 : -1) + (it - c_beg) * step +
+                (up ? lane : -lane);
+        float qf = (float)q;
+        const float stepf = (float)step;
+        float s0 = 0.0f, s1 = 0.0f;
+        for (; it < stop; ++it, q += step, qf += stepf) {
+          float2 ag, v0, v1, v2;
+          fetch(q, ag, v0, v1, v2);
+          float dg = 0.0f;
+          if (ALPHA) dg = (ag.x - a_in) * ag.y;
+          if (RGB) {
+            const float t0 = (v0.x - r0) * v0.y;
+            const float t1 = (v1.x - r1) * v1.y;
+            const float t2 = (v2.x - r2) * v2.y;
+            dg = ALPHA ? dg + (t0 + t1 + t2) : t0 + t1 + t2;
+          }
+          const float delta = qf - d1c;
+          const float c0 = __fdividef(-dg, f0 * delta + e0);
+          const float c1 = __fdividef(-dg, f1 * delta + e1);
+          const bool open = dg > 0.0f;
+          s0 = (open && use0) ? s0 + c0 : s0;
+          s1 = (open && use1) ? s1 + c1 : s1;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          s0 = s0 + __shfl_down_sync(kFull, s0, off);
+          s1 = s1 + __shfl_down_sync(kFull, s1, off);
+        }
+        if (lane == 0) {
+          if (c_beg >= beg && c_end <= end) {
+            // the warp holds the whole crossing, whose factors only it reads
+            s_f0[c] = s0;
+            s_f1[c] = s1;
+          } else {
+            // a crossing shared with the warp before (slot 0) or after (1)
+            const int i = 2 * warp + (c_beg < beg ? 0 : 1);
+            s_seg_c[i] = c;
+            s_seg_s[2 * i] = s0;
+            s_seg_s[2 * i + 1] = s1;
+          }
+        }
+      }
     }
-  }
-  __syncthreads();
-  // 4. every crossing's two sums to its in-pixel, all at once
-  for (int c = threadIdx.x; c < n; c += kOutThreads) {
-    float* o = out_of(c);
-    if (!accumulate) {
-      o[0] = s_f0[c];
-      o[plane] = s_f1[c];
-    } else if (c == threadIdx.x) {
-      o[0] = pre0 + s_f0[c];
-      o[plane] = pre1 + s_f1[c];
-    } else {
-      o[0] = o[0] + s_f0[c];
-      o[plane] = o[plane] + s_f1[c];
+    __syncthreads();
+    // the shared crossings: the thread of each one's first slot adds the
+    // partials of its later slots in warp (item) order
+    if (threadIdx.x < 2 * kWarps) {
+      const int i0 = threadIdx.x;
+      const int c = s_seg_c[i0];
+      int prev = i0 - 1;
+      while (prev >= 0 && s_seg_c[prev] < 0) --prev;
+      if (c >= 0 && (prev < 0 || s_seg_c[prev] != c)) {
+        float t0 = s_seg_s[2 * i0], t1 = s_seg_s[2 * i0 + 1];
+        for (int i = i0 + 1; i < 2 * kWarps; ++i) {
+          const int ci = s_seg_c[i];
+          if (ci < 0) continue;
+          if (ci != c) break;
+          t0 = t0 + s_seg_s[2 * i];
+          t1 = t1 + s_seg_s[2 * i + 1];
+        }
+        s_f0[c] = t0;
+        s_f1[c] = t1;
+      }
     }
+    __syncthreads();
+    // 4. every crossing's two sums to its in-pixel, all at once (each
+    // crossing belongs to one round, so its in-pixel is written once)
+    for (int c = threadIdx.x; c < n; c += kOutThreads) {
+      float* o = out_of(c);
+      if (!accumulate) {
+        o[0] = s_f0[c];
+        o[plane] = s_f1[c];
+      } else if (c == threadIdx.x) {
+        o[0] = pre0 + s_f0[c];
+        o[plane] = pre1 + s_f1[c];
+      } else {
+        o[0] = o[0] + s_f0[c];
+        o[plane] = o[plane] + s_f1[c];
+      }
+    }
+    if (!ROUNDS || next >= is) return;
+    start = next;
+    __syncthreads();                   // the next round refills the list
   }
 }
 
+// Dynamic shared memory of an out-sweep block: the staged planes with their
+// zeros (when staged), 5 words per list entry, the item sentinel.  The
+// host's round planning (backward_cuda.outsweep_plan) repeats it.
 template <bool RGB, bool ALPHA>
-size_t outsweep_smem(int is) {
-  // the staged planes with their zeros, 5 words per list entry for 3 * is
-  // entries, the item sentinel
-  const size_t span = (size_t)is + 2 * kPad;
-  return ((RGB ? 3 : 0) + (ALPHA ? 1 : 0)) * span * sizeof(float2) +
-         ((size_t)5 * 3 * is + 1) * sizeof(float);
+size_t outsweep_smem(int is, bool staged, int cap) {
+  const size_t planes =
+      staged ? ((RGB ? 3 : 0) + (ALPHA ? 1 : 0)) *
+                   ((size_t)is + 2 * kPad) * sizeof(float2)
+             : 0;
+  return planes + ((size_t)5 * cap + 1) * sizeof(float);
 }
 
 Strides strides_of(const long long* s) {
@@ -640,23 +741,80 @@ int launch_in(const float* xy, const int* fim, const float* rgb, Strides rs,
   return (int)cudaGetLastError();
 }
 
+// The dynamic shared memory an out-sweep block may take on the current
+// device: the opt-in limit per block less the kernel's static shared
+// memory (or a negative CUDA error).
+template <bool RGB, bool ALPHA, bool STAGED, bool ROUNDS>
+int dynamic_smem_limit() {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(
+        &attr, outsweep_kernel<RGB, ALPHA, STAGED, ROUNDS>);
+  return err == cudaSuccess ? optin - (int)attr.sharedSizeBytes : -(int)err;
+}
+
+template <bool RGB, bool ALPHA, bool STAGED, bool ROUNDS>
+int launch_out_as(const float* xy, const int* fim, const float* rgb,
+                  Strides rs, const float* grgb, Strides gs,
+                  const float* galpha, int bs, int is, float eps, float* out,
+                  long long bstride, int accumulate, int cap,
+                  cudaStream_t s) {
+  const size_t smem = outsweep_smem<RGB, ALPHA>(is, STAGED, cap);
+  // raise this instance's limit to all the device allows, once per device
+  // (the 48 KB default counts the static shared memory too)
+  static std::atomic<int> raised[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev].load()) {
+    const int limit = dynamic_smem_limit<RGB, ALPHA, STAGED, ROUNDS>();
+    if (limit < 0) return -limit;
+    err = cudaFuncSetAttribute(outsweep_kernel<RGB, ALPHA, STAGED, ROUNDS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               limit);
+    if (err != cudaSuccess) return (int)err;
+    raised[dev].store(1);
+  }
+  const dim3 grid(is, 2, bs);
+  outsweep_kernel<RGB, ALPHA, STAGED, ROUNDS><<<grid, kOutThreads, smem, s>>>(
+      xy, fim, rgb, rs, grgb, gs, galpha, is, eps, out, bstride, accumulate,
+      cap);
+  return (int)cudaGetLastError();
+}
+
+// A staged line whose whole list fits (cap >= 3 * is, the most active
+// crossings a line has) runs the instance without rounds when rgb or alpha
+// is drawn alone: with rgb it takes 60 registers where the instance with
+// rounds takes 64 and spills, and at 512^2 either runs 3-6% faster.  With
+// both drawn the instance with rounds (80 registers) is the faster one, by
+// 9% (PERF.md).
+// A line read from device memory is long enough to need rounds.
 template <bool RGB, bool ALPHA>
 int launch_out(const float* xy, const int* fim, const float* rgb, Strides rs,
                const float* grgb, Strides gs, const float* galpha, int bs,
                int is, float eps, float* out, long long bstride,
-               int accumulate, cudaStream_t s) {
-  if (is > kPosMask + 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = outsweep_smem<RGB, ALPHA>(is);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        outsweep_kernel<RGB, ALPHA>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+               int accumulate, int staged, int cap, cudaStream_t s) {
+  if (is < 1 || is >= kMaxLine || cap < kMinCap)
+    return (int)cudaErrorInvalidValue;
+  if constexpr (!(RGB && ALPHA)) {
+    if (staged && cap >= 3 * is)
+      return launch_out_as<RGB, ALPHA, true, false>(
+          xy, fim, rgb, rs, grgb, gs, galpha, bs, is, eps, out, bstride,
+          accumulate, cap, s);
   }
-  const dim3 grid(is, 2, bs);
-  outsweep_kernel<RGB, ALPHA><<<grid, kOutThreads, smem, s>>>(
-      xy, fim, rgb, rs, grgb, gs, galpha, is, eps, out, bstride, accumulate);
-  return (int)cudaGetLastError();
+  if (staged)
+    return launch_out_as<RGB, ALPHA, true, true>(
+        xy, fim, rgb, rs, grgb, gs, galpha, bs, is, eps, out, bstride,
+        accumulate, cap, s);
+  return launch_out_as<RGB, ALPHA, false, true>(
+      xy, fim, rgb, rs, grgb, gs, galpha, bs, is, eps, out, bstride,
+      accumulate, cap, s);
 }
 
 }  // namespace
@@ -691,23 +849,50 @@ int nr_insweep(const float* xy, const int* fim, const float* rgb,
   return (int)cudaErrorInvalidValue;
 }
 
+// The out-sweep also takes `staged` (the line's planes in shared memory)
+// and `cap`, the crossing list's entries per round (see
+// backward_cuda.outsweep_plan).
 int nr_outsweep(const float* xy, const int* fim, const float* rgb,
                 const long long* rgb_strides, const float* grgb,
                 const long long* grgb_strides, const float* galpha, int bs,
                 int is, float eps, float* out, long long bstride,
-                int accumulate, void* stream) {
+                int accumulate, int staged, int cap, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const Strides rs = strides_of(rgb_strides), gs = strides_of(grgb_strides);
   if (rgb && galpha)
     return launch_out<true, true>(xy, fim, rgb, rs, grgb, gs, galpha, bs, is,
-                                  eps, out, bstride, accumulate, s);
+                                  eps, out, bstride, accumulate, staged, cap,
+                                  s);
   if (rgb)
     return launch_out<true, false>(xy, fim, rgb, rs, grgb, gs, galpha, bs, is,
-                                   eps, out, bstride, accumulate, s);
+                                   eps, out, bstride, accumulate, staged, cap,
+                                   s);
   if (galpha)
     return launch_out<false, true>(xy, fim, rgb, rs, grgb, gs, galpha, bs, is,
-                                   eps, out, bstride, accumulate, s);
+                                   eps, out, bstride, accumulate, staged, cap,
+                                   s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory every out-sweep block may take on the current
+// device, in bytes: the least over the kernel's instances (a negative CUDA
+// error code on failure).
+int nr_outsweep_smem_limit(void) {
+  const int limits[] = {
+      dynamic_smem_limit<true, false, true, false>(),
+      dynamic_smem_limit<false, true, true, false>(),
+      dynamic_smem_limit<true, true, true, true>(),
+      dynamic_smem_limit<true, false, true, true>(),
+      dynamic_smem_limit<false, true, true, true>(),
+      dynamic_smem_limit<true, true, false, true>(),
+      dynamic_smem_limit<true, false, false, true>(),
+      dynamic_smem_limit<false, true, false, true>()};
+  int least = limits[0];
+  for (int v : limits) {
+    if (v < 0) return v;
+    least = v < least ? v : least;
+  }
+  return least;
 }
 
 }  // extern "C"

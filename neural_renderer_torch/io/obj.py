@@ -1,12 +1,19 @@
-"""Wavefront OBJ / MTL loading (host numpy).
+"""Wavefront OBJ / MTL load and save (host numpy).
 
-Port of the JAX package's ``io/obj.py`` loaders, which follow the reference
-``neural_renderer/load_obj.py``.  Parsing semantics are preserved exactly
-(``v``/``f`` lines only, polygon fan triangulation, 1-indexed -> 0-indexed,
-unit-cube normalization); the reference's K8 GPU kernel
-(``load_obj.py:91-143``) is vectorized numpy: each face's ts^3 texture cube
-is filled by mapping texel barycentrics through the face's UVs and bilinearly
-sampling the MTL texture image.  Only the pure-Python OBJ parser is ported.
+Port of the JAX package's ``io/obj.py``, which follows the reference
+``neural_renderer/load_obj.py`` and ``save_obj.py``.  Parsing semantics are
+preserved exactly (``v``/``f`` lines only, polygon fan triangulation,
+1-indexed -> 0-indexed, unit-cube normalization); the reference's GPU
+kernels become vectorized numpy:
+
+  * K8 (``load_obj.py:91-143``): fill each face's ts^3 texture cube by
+    mapping texel barycentrics through the face's UVs and bilinearly
+    sampling the MTL texture image;
+  * K9/K10 (``save_obj.py:32-140``): bake per-face texture cubes into a 2D
+    tiled atlas and fix the diagonal seam.
+
+The v/f hot path of ``load_obj`` uses the native parser (``io/native.py``)
+where ``g++`` can build it, else the pure-Python parser.
 
 Deliberate fixes vs the reference (documented deviations):
   * ``load_mtl`` stores ``Kd`` colors as float arrays (the reference keeps a
@@ -14,14 +21,15 @@ Deliberate fixes vs the reference (documented deviations):
   * bilinear sampling clamps to the image border instead of reading out of
     bounds (load_obj.py:115-128 reads row H / col W);
   * texel (0,0,0)'s degenerate barycentric (0/0) samples the first UV vertex
-    instead of propagating NaN.
+    instead of propagating NaN;
+  * atlas tiles beyond num_faces are left black instead of reading OOB.
 """
 
 import os
 
 import numpy as np
 
-from neural_renderer_torch.io.image import imread
+from neural_renderer_torch.io.image import imread, imsave01
 
 
 def load_mtl(filename_mtl):
@@ -140,22 +148,12 @@ def load_textures(filename_obj, filename_mtl, texture_size):
     return textures
 
 
-def load_obj(filename_obj, normalization=True, texture_size=4,
-             load_texture=False):
-    """Load a Wavefront .obj (reference load_obj.py:146-197).
-
-    Supports ``v`` and ``f`` lines (+ ``vt``/``mtllib`` when load_texture).
-    Returns (vertices [nv,3] f32, faces [nf,3] i32[, textures]).
-
-    Negative OBJ indices resolve to proper relative indexing (the
-    reference's blanket ``- 1`` at load_obj.py:175 mis-resolves negatives by
-    one — deliberate fix, as in the JAX package).
-    """
+def _parse_obj(filename_obj):
+    """The pure-Python v/f parser: (vertices [nv,3] f32, faces [nf,3] i32).
+    One pass, so negative (relative) face indices resolve against the
+    vertices seen so far, as the native parser resolves them."""
     with open(filename_obj) as f:
         lines = f.readlines()
-
-    # single pass so negative (relative) face indices resolve against the
-    # vertices seen SO FAR
     vertices = []
     faces = []
     for line in lines:
@@ -170,11 +168,36 @@ def load_obj(filename_obj, normalization=True, texture_size=4,
             idx = [i - 1 if i > 0 else nvert + i for i in idx]
             for k in range(len(idx) - 2):
                 faces.append((idx[0], idx[k + 1], idx[k + 2]))
-    vertices = np.vstack(vertices).astype(np.float32)
-    faces = np.asarray(faces, np.int32)
+    return np.vstack(vertices).astype(np.float32), np.asarray(faces, np.int32)
+
+
+def load_obj(filename_obj, normalization=True, texture_size=4,
+             load_texture=False, use_native=True):
+    """Load a Wavefront .obj (reference load_obj.py:146-197).
+
+    Supports ``v`` and ``f`` lines (+ ``vt``/``mtllib`` when load_texture).
+    Returns (vertices [nv,3] f32, faces [nf,3] i32[, textures]).
+
+    The v/f hot path uses the native C++ parser (``csrc/fast_obj.cpp``)
+    when ``use_native`` and the toolchain is available; both parsers
+    resolve negative OBJ indices to proper relative indexing (the
+    reference's blanket ``- 1`` at load_obj.py:175 mis-resolves negatives
+    by one — deliberate fix, as in the JAX package).
+    """
+    parsed = None
+    if use_native:
+        from neural_renderer_torch.io import native
+        parsed = native.parse_obj(filename_obj)
+
+    if parsed is not None:
+        vertices, faces = parsed
+    else:
+        vertices, faces = _parse_obj(filename_obj)
 
     textures = None
     if load_texture:
+        with open(filename_obj) as f:
+            lines = f.readlines()
         for line in lines:
             if line.startswith('mtllib'):
                 filename_mtl = os.path.join(
@@ -194,3 +217,138 @@ def load_obj(filename_obj, normalization=True, texture_size=4,
     if load_texture:
         return vertices, faces, textures
     return vertices, faces
+
+
+def _face_inv(p0, p1, p2):
+    """Barycentric matrices of the atlas triangles (save_obj.py:55-66)."""
+    denom = (p2[..., 0] * (p0[..., 1] - p1[..., 1])
+             + p0[..., 0] * (p1[..., 1] - p2[..., 1])
+             + p1[..., 0] * (p2[..., 1] - p0[..., 1]))
+    rows = np.stack([
+        np.stack([p1[..., 1] - p2[..., 1], p2[..., 0] - p1[..., 0],
+                  p1[..., 0] * p2[..., 1] - p2[..., 0] * p1[..., 1]], -1),
+        np.stack([p2[..., 1] - p0[..., 1], p0[..., 0] - p2[..., 0],
+                  p2[..., 0] * p0[..., 1] - p0[..., 0] * p2[..., 1]], -1),
+        np.stack([p0[..., 1] - p1[..., 1], p1[..., 0] - p0[..., 0],
+                  p0[..., 0] * p1[..., 1] - p1[..., 0] * p0[..., 1]], -1),
+    ], axis=-2)
+    return rows / denom[..., None, None]
+
+
+def create_texture_image(textures, texture_size_out=16):
+    """Bake per-face texture cubes into a tiled 2D atlas.
+
+    Reference save_obj.py:10-148 (K9 barycentric resample + K10 seam fix).
+    textures: [nf, tsi, tsi, tsi, 3] (numpy array or tensor).
+    Returns (image [H, W, 3] float, uv vertices [nf, 3, 2] in [0,1]).
+    """
+    if hasattr(textures, 'detach'):
+        textures = textures.detach().cpu().numpy()
+    textures = np.asarray(textures, np.float32)
+    num_faces, tsi = textures.shape[:2]
+    tso = texture_size_out
+    eps = 1e-5
+    tile_width = int((num_faces - 1.0) ** 0.5) + 1
+    tile_height = int((num_faces - 1.0) / tile_width) + 1
+    H, W = tile_height * tso, tile_width * tso
+
+    face_nums = np.arange(num_faces)
+    column = face_nums % tile_width
+    row = face_nums // tile_width
+    vertices = np.zeros((num_faces, 3, 2), np.float32)
+    vertices[:, 0, 0] = column * tso
+    vertices[:, 0, 1] = row * tso
+    vertices[:, 1, 0] = column * tso
+    vertices[:, 1, 1] = (row + 1) * tso - 1
+    vertices[:, 2, 0] = (column + 1) * tso - 1
+    vertices[:, 2, 1] = (row + 1) * tso - 1
+
+    # per-pixel face id and barycentric weights (save_obj.py:37-70)
+    ys, xs = np.mgrid[0:H, 0:W]
+    fn = (xs // tso) + (ys // tso) * tile_width
+    valid = fn < num_faces
+    fnc = np.clip(fn, 0, num_faces - 1)
+    finv = _face_inv(vertices[fnc, 0], vertices[fnc, 1], vertices[fnc, 2])
+    w = (finv[..., 0] * xs[..., None] + finv[..., 1] * ys[..., None]
+         + finv[..., 2])
+    w = w / (w.sum(-1, keepdims=True) + eps)
+
+    # 8-corner trilinear from the cube (save_obj.py:77-97)
+    tif = np.clip(w * (tsi - 1), 0.0, tsi - 1 - eps)
+    lo = tif.astype(np.int64)
+    frac = tif - lo
+    tex_flat = textures.reshape(num_faces, tsi * tsi * tsi, 3)
+    out = np.zeros((H, W, 3), np.float32)
+    for pn in range(8):
+        wgt = np.ones((H, W), np.float32)
+        ii = []
+        for k in range(3):
+            if (pn >> k) % 2 == 0:
+                wgt = wgt * (1.0 - frac[..., k])
+                ii.append(lo[..., k])
+            else:
+                wgt = wgt * frac[..., k]
+                ii.append(lo[..., k] + 1)
+        isc = ii[0] * tsi * tsi + ii[1] * tsi + ii[2]
+        out += wgt[..., None] * tex_flat[fnc, isc]
+    image = np.where(valid[..., None], out, 0.0)
+
+    # seam fix (save_obj.py:109-140, K10): copy the pixel just left of the
+    # tile diagonal across it
+    seam = (ys % tso + 1) == (xs % tso)
+    src = np.roll(image, 1, axis=1)
+    image = np.where(seam[..., None], src, image)
+
+    vertices[:, :, 0] /= (W - 1)
+    vertices[:, :, 1] /= (H - 1)
+    image = image[::-1, ::1]
+    return image, vertices
+
+
+def save_obj(filename, vertices, faces, textures=None):
+    """Write an OBJ (+ MTL and PNG atlas when textures are given).
+
+    Reference save_obj.py:151-192; arrays may be numpy arrays or tensors.
+    """
+    vertices, faces = (
+        a.detach().cpu().numpy() if hasattr(a, 'detach') else np.asarray(a)
+        for a in (vertices, faces))
+    if vertices.ndim != 2 or faces.ndim != 2:
+        raise ValueError('vertices must be [nv, 3] and faces [nf, 3]; got '
+                         f'{vertices.shape} and {faces.shape}')
+
+    filename_mtl = filename[:-4] + '.mtl'
+    filename_texture = filename[:-4] + '.png'
+    material_name = 'material_1'
+    if textures is not None:
+        texture_image, vertices_textures = create_texture_image(textures)
+        imsave01(filename_texture, texture_image)
+
+    with open(filename, 'w') as f:
+        f.write('# %s\n' % os.path.basename(filename))
+        f.write('#\n')
+        f.write('\n')
+        if textures is not None:
+            f.write('mtllib %s\n\n' % os.path.basename(filename_mtl))
+        for vertex in vertices:
+            f.write('v %.8f %.8f %.8f\n' % (vertex[0], vertex[1], vertex[2]))
+        f.write('\n')
+        if textures is not None:
+            for vertex in vertices_textures.reshape(-1, 2):
+                f.write('vt %.8f %.8f\n' % (vertex[0], vertex[1]))
+            f.write('\n')
+            f.write('usemtl %s\n' % material_name)
+            for i, face in enumerate(faces):
+                f.write('f %d/%d %d/%d %d/%d\n' % (
+                    face[0] + 1, 3 * i + 1, face[1] + 1, 3 * i + 2,
+                    face[2] + 1, 3 * i + 3))
+            f.write('\n')
+        else:
+            for face in faces:
+                f.write('f %d %d %d\n' % (
+                    face[0] + 1, face[1] + 1, face[2] + 1))
+
+    if textures is not None:
+        with open(filename_mtl, 'w') as f:
+            f.write('newmtl %s\n' % material_name)
+            f.write('map_Kd %s\n' % os.path.basename(filename_texture))

@@ -11,9 +11,63 @@ skipping the parameter entirely, m and v included, where the scale is 0.
 The step size is Chainer's bias-corrected
 ``lr_t = alpha * sqrt(1 - beta2^t) / (1 - beta1^t)``, computed in float32
 as the JAX package does.
+
+Two forms share one per-element update (``_leaf``): the optimizer class
+``Adam`` and the functional ``adam``, the JAX package's optax-style
+``(init_fn, update_fn)`` over dicts of tensors, which the data-parallel
+step (``parallel.make_data_parallel_train_step``) takes.
 """
 
 import torch
+
+
+def _lr_t(alpha, b1, b2, count, device):
+    """Chainer's bias-corrected step size at step ``count``, f32."""
+    t = torch.tensor(float(count), dtype=torch.float32, device=device)
+    return alpha * torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
+
+
+def _leaf(g, m, v, lr_t, scale, b1, b2, eps):
+    """One parameter's (update to add, new m, new v).  Elements whose
+    gradient is 0 keep m, v and the parameter (optimizers.py:23 'if (grad
+    != 0)'); a scale of 0 freezes them all (optimizers.py:17-18 'if lr !=
+    0')."""
+    active = (g != 0.0) & (scale != 0)
+    m_new = torch.where(active, m + (1 - b1) * (g - m), m)
+    v_new = torch.clamp(torch.where(active, v + (1 - b2) * (g * g - v), v),
+                        min=0.0)
+    upd = torch.where(active, -lr_t * scale * m_new / (torch.sqrt(v_new) + eps),
+                      0.0)
+    return upd, m_new, v_new
+
+
+def adam(alpha=0.001, beta1=0.9, beta2=0.999, eps=1e-8, lr_scales=None):
+    """The functional form (JAX package ``optim.adam``): returns
+    ``(init_fn, update_fn)``.
+
+    ``init_fn(params)`` -> state dict(count, m, v) for a dict of tensors;
+    ``update_fn(grads, state, params=None)`` -> (updates to add to the
+    params, new state).  ``lr_scales``: an optional dict of per-parameter
+    learning-rate multipliers (default 1.0)."""
+
+    def init_fn(params):
+        return dict(count=0,
+                    m={k: torch.zeros_like(p) for k, p in params.items()},
+                    v={k: torch.zeros_like(p) for k, p in params.items()})
+
+    def update_fn(grads, state, params=None):
+        del params
+        count = state['count'] + 1
+        updates, m_new, v_new = {}, {}, {}
+        for k, g in grads.items():
+            scale = 1.0 if lr_scales is None else lr_scales.get(k, 1.0)
+            lr_t = _lr_t(alpha, beta1, beta2, count, g.device)
+            updates[k], m_new[k], v_new[k] = _leaf(
+                g, state['m'][k], state['v'][k], lr_t, scale, beta1, beta2,
+                eps)
+        return updates, dict(count=count, m=m_new, v=v_new)
+
+    return init_fn, update_fn
 
 
 class Adam(torch.optim.Optimizer):
@@ -47,17 +101,10 @@ class Adam(torch.optim.Optimizer):
                     state['m'] = torch.zeros_like(p)
                     state['v'] = torch.zeros_like(p)
                 state['step'] += 1
-                if scale == 0:
-                    continue              # optimizers.py:17-18 'if lr != 0'
-                t = torch.tensor(float(state['step']), dtype=torch.float32,
-                                 device=p.device)
-                lr_t = alpha * torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
-                g, m, v = p.grad, state['m'], state['v']
-                active = g != 0.0         # optimizers.py:23 'if (grad != 0)'
-                m.copy_(torch.where(active, m + (1 - b1) * (g - m), m))
-                v.copy_(torch.clamp(
-                    torch.where(active, v + (1 - b2) * (g * g - v), v),
-                    min=0.0))
-                p.add_(torch.where(
-                    active, -lr_t * scale * m / (torch.sqrt(v) + eps), 0.0))
+                upd, m, v = _leaf(p.grad, state['m'], state['v'],
+                                  _lr_t(alpha, b1, b2, state['step'],
+                                        p.device), scale, b1, b2, eps)
+                state['m'].copy_(m)
+                state['v'].copy_(v)
+                p.add_(upd)
         return loss

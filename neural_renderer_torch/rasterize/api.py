@@ -7,6 +7,9 @@ convenience functions.  Outputs lie on the device of ``faces``.  All are
 differentiable (autograd runs the flip and pool around ``RasterizeCore``).
 """
 
+import os
+import warnings
+
 import numpy as np
 import torch
 
@@ -21,6 +24,25 @@ from neural_renderer_torch.rasterize.config import (
     resolve_device,
 )
 from neural_renderer_torch.rasterize.core import rasterize_core
+
+# API-compat shim for the reference's global unsafe/safe toggle
+# (rasterize.py:13-16, 1063-1065) including the NEURAL_RENDERER_UNSAFE
+# environment variable, as in the JAX package (api.py:26-42).  The port's
+# rasterizer and its scatters are deterministic (no float atomics), so
+# "unsafe" has nothing to offer; the flag is accepted and ignored.
+USE_UNSAFE_IMPLEMENTATION = bool(
+    int(os.environ.get('NEURAL_RENDERER_UNSAFE', '0') or 0))
+
+
+def use_unsafe_rasterizer(flag):
+    """Accepted for compatibility and ignored (warns when ``flag`` is
+    true): the port is always deterministic."""
+    global USE_UNSAFE_IMPLEMENTATION
+    USE_UNSAFE_IMPLEMENTATION = bool(flag)
+    if flag:
+        warnings.warn(
+            'use_unsafe_rasterizer(True) is a no-op: the rasterizer is '
+            'always deterministic (no atomics to trade away).')
 
 
 def _as_tensor(x, dtype=torch.float32, device=None):
@@ -95,14 +117,15 @@ def _avg_pool_2x2(x):
 
 
 def _render_pass(faces, textures, background, render_size, pool,
-                 near, far, eps, return_rgb, return_alpha, return_depth):
+                 near, far, eps, return_rgb, return_alpha, return_depth,
+                 face_group):
     """One rasterize_core invocation + the reference's output formatting
     (NCHW transpose, vertical flip, optional 2x2 mean pool —
     rasterize.py:953-969).  Returns dict(rgb, alpha, depth) with Nones."""
     settings = RasterizeSettings(
         image_size=render_size, near=float(near), far=float(far),
         eps=float(eps), return_rgb=return_rgb, return_alpha=return_alpha,
-        return_depth=return_depth).validate()
+        return_depth=return_depth, face_group=face_group).validate()
 
     rgb, alpha, depth = rasterize_core(settings, faces, textures, background)
 
@@ -154,7 +177,8 @@ def rasterize_rgbad(
         background_color=DEFAULT_BACKGROUND_COLOR,
         return_rgb=True,
         return_alpha=True,
-        return_depth=True):
+        return_depth=True,
+        face_group=None):
     """Rasterize NDC faces to RGB / alpha / depth images.
 
     Args mirror the reference ``rasterize_rgbad`` (rasterize.py:900-938):
@@ -165,13 +189,17 @@ def rasterize_rgbad(
         returns the values of ``True`` (the same 2x render, run without
         gradient) with the gradient of a 1x render (``False``), so the
         backward runs at a quarter of the pixels (JAX api.py:197-212).
+      face_group: a ``torch.distributed`` process group over which the
+        face list is sharded (``RasterizeSettings.face_group``): faces and
+        textures are this rank's slice, every rank gets the whole image.
 
     Returns dict(rgb=[bs,3,H,W], alpha=[bs,H,W], depth=[bs,H,W]) with None
     for unrequested channels.
     """
     faces, textures = _prepare(faces, textures, return_rgb)
     background = _background_array(background_color, faces.device)
-    common = (near, far, eps, return_rgb, return_alpha, return_depth)
+    common = (near, far, eps, return_rgb, return_alpha, return_depth,
+              face_group)
     if anti_aliasing == 'approx':
         with torch.no_grad():
             val = _render_pass(faces, textures, background, image_size * 2,
@@ -193,31 +221,31 @@ def rasterize(
         faces, textures,
         image_size=DEFAULT_IMAGE_SIZE, anti_aliasing=DEFAULT_ANTI_ALIASING,
         near=DEFAULT_NEAR, far=DEFAULT_FAR, eps=DEFAULT_EPS,
-        background_color=DEFAULT_BACKGROUND_COLOR):
+        background_color=DEFAULT_BACKGROUND_COLOR, face_group=None):
     """RGB images ``[bs, 3, H, W]`` (reference rasterize.py:980-1008)."""
     return rasterize_rgbad(
         faces, textures, image_size, anti_aliasing, near, far, eps,
-        background_color, True, False, False)['rgb']
+        background_color, True, False, False, face_group)['rgb']
 
 
 def rasterize_silhouettes(
         faces,
         image_size=DEFAULT_IMAGE_SIZE, anti_aliasing=DEFAULT_ANTI_ALIASING,
-        near=DEFAULT_NEAR, far=DEFAULT_FAR, eps=DEFAULT_EPS):
+        near=DEFAULT_NEAR, far=DEFAULT_FAR, eps=DEFAULT_EPS, face_group=None):
     """Alpha channels ``[bs, H, W]`` (reference rasterize.py:1011-1034)."""
     return rasterize_rgbad(
         faces, None, image_size, anti_aliasing, near, far, eps, None,
-        False, True, False)['alpha']
+        False, True, False, face_group)['alpha']
 
 
 def rasterize_depth(
         faces,
         image_size=DEFAULT_IMAGE_SIZE, anti_aliasing=DEFAULT_ANTI_ALIASING,
-        near=DEFAULT_NEAR, far=DEFAULT_FAR, eps=DEFAULT_EPS):
+        near=DEFAULT_NEAR, far=DEFAULT_FAR, eps=DEFAULT_EPS, face_group=None):
     """Depth images ``[bs, H, W]`` (reference rasterize.py:1037-1060)."""
     return rasterize_rgbad(
         faces, None, image_size, anti_aliasing, near, far, eps, None,
-        False, False, True)['depth']
+        False, False, True, face_group)['depth']
 
 
 class Rasterize:

@@ -52,8 +52,10 @@ def _sweeps():
               i64]
     lib.nr_insweep.argtypes = common + [ptr]
     lib.nr_insweep.restype = i32
-    lib.nr_outsweep.argtypes = common + [i32, ptr]
+    lib.nr_outsweep.argtypes = common + [i32, i32, i32, ptr]
     lib.nr_outsweep.restype = i32
+    lib.nr_outsweep_smem_limit.argtypes = []
+    lib.nr_outsweep_smem_limit.restype = i32
     lib.nr_error_string.argtypes = [i32]
     lib.nr_error_string.restype = ctypes.c_char_p
     return lib
@@ -71,6 +73,77 @@ def _reduce():
     lib.nr_error_string.argtypes = [i32]
     lib.nr_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# the out-sweep's crossing-list entries per detection group (3 edges of 2
+# positions for each of 256 threads): the least list a staged line gets
+_OUT_GROUP = 3 * 2 * 256
+# a crossing-list entry (d1_cross, two factors, key, first item), bytes
+_OUT_ENTRY = 20
+# the zeros staged before and after a line
+_OUT_PAD = 32
+# shared memory of an out-sweep block that reads its planes from device
+# memory: no opt-in needed, so several blocks share an SM
+_OUT_UNSTAGED_SMEM = 48 * 1024
+
+
+def outsweep_plan(is_, rgb, alpha, smem_limit, cap=None, staged=None):
+    """The out-sweep kernel's layout for lines of ``is_`` pixels:
+    dict(staged, cap, smem).
+
+    ``staged``: the line's (value, gradient) planes live in shared memory,
+    32 bytes a position with rgb and alpha drawn (``csrc/
+    backward_sweeps.cu``); otherwise the kernel reads them from device
+    memory.  ``cap``: the crossing list's entries; a line with more active
+    crossings (at most ``3 * is_``) is swept in rounds of ``cap``.
+    ``smem``: the block's dynamic shared memory in bytes, within
+    ``smem_limit`` (what the device's opt-in limit per block leaves beside
+    the kernel's static shared memory).
+
+    The planes are staged when they leave room for a list of one detection
+    group (``_OUT_GROUP`` entries), and the list takes the rest, up to the
+    ``3 * is_`` a line can hold; unstaged lines keep a list that fits
+    48 KB.  ``cap`` given (at least 3) overrides the list size and
+    ``staged`` the choice of where the planes live: a test forces rounds
+    and device-memory planes with them."""
+    words = 3 * bool(rgb) + bool(alpha)
+    planes = 8 * words * (is_ + 2 * _OUT_PAD)
+    full = 3 * is_
+
+    def smem(staged, k):
+        return (planes if staged else 0) + 4 + _OUT_ENTRY * k
+
+    if staged is None:
+        staged = smem(True, min(full, _OUT_GROUP if cap is None else cap)
+                      ) <= smem_limit
+    if cap is None:
+        room = smem_limit if staged else min(smem_limit, _OUT_UNSTAGED_SMEM)
+        cap = min(full, (room - smem(staged, 0)) // _OUT_ENTRY)
+    if cap < 3:
+        raise ValueError(f'the crossing list needs 3 entries; got {cap}')
+    if smem(staged, cap) > smem_limit:
+        raise ValueError(f'a {cap}-entry crossing list needs '
+                         f'{smem(staged, cap)} bytes of shared memory; the '
+                         f'device offers {smem_limit}')
+    return dict(staged=staged, cap=cap, smem=smem(staged, cap))
+
+
+@functools.cache
+def _smem_limit(device_index):
+    """The dynamic shared memory an out-sweep block may take on CUDA device
+    ``device_index``: its opt-in limit per block less the kernel's static
+    shared memory."""
+    lib = _sweeps()
+    with torch.cuda.device(device_index):
+        limit = lib.nr_outsweep_smem_limit()
+    if limit <= 0:
+        _build.raise_on_error(lib, -limit, 'smem query')
+    return limit
+
+
+def _device_index(t):
+    return (t.device.index if t.device.index is not None
+            else torch.cuda.current_device())
 
 
 def _ptr(t):
@@ -187,10 +260,19 @@ def outsweep(settings, xy, face_index_map, rgb=None, grad_rgb=None,
     """K5 out-sweep channels ``[bs, 12, is, is]``.  With ``out`` (a
     ``[bs, 12, is, is]`` view with dense planes) the result is written
     there, or with ``accumulate`` added to it (``out + sweep``, as the JAX
-    package adds the out-sweep to the in-sweep).  The kernel keeps a line's
-    planes and crossing list in shared memory, 92 bytes per pixel of the
-    line with rgb and alpha drawn, so it takes ``is <= 2504`` on an
-    H100."""
+    package adds the out-sweep to the in-sweep).  The kernel takes any
+    line length: a line's crossing list is swept in rounds where it
+    outgrows shared memory, and a line's planes are read from device memory
+    where they do not fit there (``outsweep_plan``)."""
+    return _outsweep(settings, xy, face_index_map, rgb, grad_rgb,
+                     grad_alpha, out, accumulate)
+
+
+def _outsweep(settings, xy, face_index_map, rgb, grad_rgb, grad_alpha, out,
+              accumulate, cap=None, staged=None):
+    """``outsweep``, whose kernel launch may be given the crossing list's
+    capacity ``cap`` and where its planes live, ``staged``
+    (``outsweep_plan``)."""
     _check_sweep_inputs(settings, xy, face_index_map, rgb, grad_rgb,
                         grad_alpha)
     bs, is_ = face_index_map.shape[0], settings.image_size
@@ -207,8 +289,11 @@ def outsweep(settings, xy, face_index_map, rgb=None, grad_rgb=None,
     if out is None:
         out = torch.empty((bs, 12, is_, is_), dtype=torch.float32,
                           device=xy.device)
+    plan = outsweep_plan(is_, settings.return_rgb, settings.return_alpha,
+                         _smem_limit(_device_index(xy)), cap, staged)
     return _launch_sweep('outsweep', settings, xy, face_index_map, rgb,
-                         grad_rgb, grad_alpha, out, int(accumulate))
+                         grad_rgb, grad_alpha, out, int(accumulate),
+                         int(plan['staged']), plan['cap'])
 
 
 def _expanded_width(C, ts):

@@ -70,7 +70,13 @@ class RasterizeSettings:
     """Static rasterizer configuration: the reference ``Rasterize.__init__``
     arguments (``rasterize.py:19-37``).  The background color is a tensor
     operand of ``rasterize_core`` ([3] or per-batch [bs, 3], reference
-    rasterize.py:462-465), not static config."""
+    rasterize.py:462-465), not static config.
+
+    ``face_group``: a ``torch.distributed`` process group over which the
+    face list is sharded (face-axis model parallelism, ``parallel.py``; the
+    JAX package's ``face_axis``).  Each rank rasterizes its slice and the
+    z-buffers merge across the group (``core._merge_face_group``); None
+    renders the faces given alone."""
     image_size: int = DEFAULT_IMAGE_SIZE
     near: float = DEFAULT_NEAR
     far: float = DEFAULT_FAR
@@ -78,6 +84,7 @@ class RasterizeSettings:
     return_rgb: bool = True
     return_alpha: bool = True
     return_depth: bool = True
+    face_group: object = None
 
     def validate(self):
         if not (self.return_rgb or self.return_alpha or self.return_depth):

@@ -24,7 +24,9 @@ flip / anti-aliasing (``rasterize.py:953-969``).
 """
 
 import torch
+import torch.distributed as dist
 
+from neural_renderer_torch._collectives import all_reduce
 from neural_renderer_torch.rasterize import backward as bwd
 from neural_renderer_torch.rasterize import backward_cuda
 from neural_renderer_torch.rasterize import forward_cuda, geometry
@@ -35,30 +37,78 @@ from neural_renderer_torch.rasterize import texture as tex
 MAX_FACTOR_TS = 4
 
 
+def _merge_face_group(settings, out, nf_local):
+    """Merge the ranks' z-buffers across ``settings.face_group``
+    (JAX ``core._merge_face_axis``).
+
+    Each rank rasterized its slice of the face list, rank r holding global
+    ids ``r * nf_local ..``.  A pixel's global winner is the (depth, global
+    id) minimum over the ranks: one process rasterizing the concatenated
+    list keeps the first face of strictly least depth (rasterize.py:334),
+    so the merged maps equal its maps bit for bit.  Two MIN reductions find
+    the winner and one SUM of the winner-masked maps (``weights``, ``z``,
+    ``xy`` and ``rgb``) gives every rank the winner's values; depth is the
+    least depth, ``far`` where no rank covers the pixel.
+
+    ``face_index_map`` comes back localized (the rank's local ids where it
+    won, -1 elsewhere), so the backward reduces exactly the rank's slice;
+    ``global_index_map`` holds the global winner (-1 uncovered), the
+    coverage that compositing and the K5 sweeps read.  ``bins`` stay the
+    rank's own tile lists."""
+    group = settings.face_group
+    lo = dist.get_rank(group) * nf_local
+    fim = out['face_index_map']
+    covered = fim >= 0
+    big = torch.iinfo(torch.int32).max
+    z = torch.where(covered, out['depth_map'], torch.inf)
+    gid = torch.where(covered, fim + lo, big)
+    zmin = all_reduce(z.clone(), dist.ReduceOp.MIN, group)
+    gid_win = all_reduce(torch.where(z == zmin, gid, big),
+                         dist.ReduceOp.MIN, group)
+    mine = ((gid == gid_win) & covered)[:, None]
+    keys = [k for k in ('weights', 'z', 'xy', 'rgb') if k in out]
+    widths = [out[k].shape[1] for k in keys]
+    merged = torch.cat([torch.where(mine, out[k], 0.0) for k in keys], 1)
+    merged = all_reduce(merged, dist.ReduceOp.SUM, group)
+    res = dict(out, **dict(zip(keys, merged.split(widths, 1))))
+    res['depth_map'] = torch.where(torch.isinf(zmin), settings.far, zmin)
+    res['face_index_map'] = torch.where(
+        (gid_win >= lo) & (gid_win < lo + nf_local), gid_win - lo, -1
+    ).to(torch.int32)
+    res['global_index_map'] = torch.where(gid_win < big, gid_win, -1).to(
+        torch.int32)
+    return res
+
+
 def _forward_all(settings, faces, textures, background):
     """Full forward: (rgb, alpha, depth, maps).
 
     background: f32 ``[3]`` (static color) or ``[bs, 3]`` (per batch
     element, reference rasterize.py:462-465).  Unrequested channels are
     shape-(1,) zeros; rgb is the *composited* map ``[bs, is, is, 3]``.
-    maps: the forward kernel's outputs (``forward_cuda.forward_shaded``).
+    maps: the forward kernel's outputs (``forward_cuda.forward_shaded``),
+    rgb sampled in when the kernel did not shade it, merged across the
+    face group where there is one (``_merge_face_group``).
     """
     fuse_rgb = (settings.return_rgb
                 and textures.shape[2] <= forward_cuda.MAX_FUSED_TS)
     out = forward_cuda.forward_shaded(settings, faces,
                                       textures if fuse_rgb else None)
-    face_index_map = out['face_index_map']
-    covered = face_index_map >= 0
+    if settings.return_rgb and not fuse_rgb:
+        # sampled from the local winners, before a face-group merge
+        out['rgb'] = tex.sample_textures(
+            settings, textures, out['face_index_map'],
+            out['z'].permute(0, 2, 3, 1),
+            out['weights'].permute(0, 2, 3, 1),
+            out['depth_map']).permute(0, 3, 1, 2)
+    if settings.face_group is not None:
+        out = _merge_face_group(settings, out, faces.shape[1])
+    # a pixel won by another rank's face is covered too
+    covered = out.get('global_index_map', out['face_index_map']) >= 0
     dev = faces.device
 
     if settings.return_rgb:
-        if fuse_rgb:
-            rgb_map = out['rgb'].permute(0, 2, 3, 1)
-        else:
-            rgb_map = tex.sample_textures(
-                settings, textures, face_index_map,
-                out['z'].permute(0, 2, 3, 1),
-                out['weights'].permute(0, 2, 3, 1), out['depth_map'])
+        rgb_map = out['rgb'].permute(0, 2, 3, 1)
         # background composite (rasterize.py:451-465)
         bg = (background[None, None, None, :] if background.ndim == 1
               else background[:, None, None, :])
@@ -106,15 +156,20 @@ def channel_stack(settings, maps, g_rgb, g_alpha, g_depth, k5, k7, k6_ts):
 
     maps: the forward's ``face_index_map``, ``weights``, ``depth_map``,
     ``xy``, ``z`` and the composited ``rgb`` ([bs, is, is, 3], read by K5
-    when rgb is drawn); g_*: the output gradients."""
+    when rgb is drawn), and under a face group ``global_index_map``: the
+    K5 sweeps take their coverage from it, so their channels are the same
+    on every rank, and the reduction drops the pixels other ranks won;
+    g_*: the output gradients."""
     fim = maps['face_index_map']
+    cover = maps.get('global_index_map')
+    cover = fim if cover is None else cover
     bs, is_ = fim.shape[0], settings.image_size
     naux = k6_ts * k6_ts + k6_ts + 3 if k6_ts else 0
     C = (12 if k5 else 0) + (9 if k7 else 0) + naux
     stack = torch.empty((bs, C, is_, is_), dtype=torch.float32,
                         device=fim.device)
     if k5:
-        _k5_stack(settings, stack[:, :12], fim, maps['xy'], maps['rgb'],
+        _k5_stack(settings, stack[:, :12], cover, maps['xy'], maps['rgb'],
                   g_rgb, g_alpha)
     if k7:
         off = 12 if k5 else 0
@@ -129,7 +184,8 @@ def channel_stack(settings, maps, g_rgb, g_alpha, g_depth, k5, k7, k6_ts):
     return stack
 
 
-_SAVED = ('face_index_map', 'weights', 'depth_map', 'xy', 'z', 'rgb')
+_SAVED = ('face_index_map', 'weights', 'depth_map', 'xy', 'z', 'rgb',
+          'global_index_map')
 # the forward kernel's tile lists, which the reduction on the card needs
 _BINS = ('start', 'ids', 'order', 'first')
 
@@ -151,6 +207,7 @@ class RasterizeCore(torch.autograd.Function):
         if any(ctx.needs_input_grad):
             # alpha is the coverage of face_index_map
             out['rgb'] = rgb if settings.return_rgb else None
+            out.setdefault('global_index_map', None)
             bins = out.get('bins')
             ctx.tile = bins['tile'] if bins else None
             ctx.save_for_backward(*(out[k] for k in _SAVED),
@@ -207,7 +264,9 @@ class RasterizeCore(torch.autograd.Function):
             # exact: d(rgb_out)/d(bg) = 1 - coverage (JAX core.py:724-739);
             # the reference treats the background as a constant
             if s.return_rgb:
-                uncovered = (fim < 0).to(torch.float32)
+                cover = maps['global_index_map']
+                uncovered = ((fim if cover is None else cover) < 0).to(
+                    torch.float32)
                 grad_bg = (g_rgb * uncovered[..., None]).sum(dim=(1, 2))
                 if len(bg_shape) == 1:
                     grad_bg = grad_bg.sum(0)

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from neural_renderer_torch.io.obj import load_obj
+from neural_renderer_torch.ops.spatial import _numpy, face_spatial_order
 from neural_renderer_torch.rasterize.config import resolve_device
 
 
@@ -23,20 +24,30 @@ class Mesh(nn.Module):
     ``Mesh('file.obj', texture_size=4)`` loads an OBJ like the reference
     constructor (``from_obj`` with seed 0).  Parameters and buffer are built
     on ``device``, the card unless asked otherwise
-    (``config.resolve_device``)."""
+    (``config.resolve_device``).
+
+    ``spatial_order=True`` reorders the faces and their texture cubes once
+    by the Morton code of their centroids (``ops/spatial.py``), as the JAX
+    package does; ``face_order`` then holds the permutation (new slot ->
+    original face index).  Opt-in: z-ties between exactly coincident faces
+    resolve in the new list order."""
 
     def __init__(self, vertices, textures=None, faces=None, texture_size=4,
                  normalization=True, lr_vertices=1.0, lr_textures=1.0,
                  spatial_order=False, device=None):
         super().__init__()
-        if spatial_order:
-            raise NotImplementedError(
-                'spatial_order needs ops/spatial.py, which is not ported yet '
-                '(ROADMAP Queue 1, "Tune, checks and the rest of the tail")')
         device = resolve_device(device)
         if isinstance(vertices, str):
             vertices, textures, faces = _obj_arrays(
                 vertices, texture_size, normalization, 0)
+        vertices, faces = _numpy(vertices), _numpy(faces)
+        textures = None if textures is None else _numpy(textures)
+        self.face_order = None
+        if spatial_order:
+            self.face_order = face_spatial_order(vertices, faces)
+            faces = faces[self.face_order]
+            if textures is not None:
+                textures = textures[self.face_order]
         self.vertices = nn.Parameter(torch.tensor(
             np.asarray(vertices, np.float32), device=device))
         self.textures = (None if textures is None else nn.Parameter(
@@ -48,12 +59,13 @@ class Mesh(nn.Module):
 
     @classmethod
     def from_obj(cls, filename_obj, texture_size=4, normalization=True,
-                 seed=0, device=None):
+                 seed=0, device=None, spatial_order=False):
         """Load an OBJ; textures ~ Normal(0, 0.05) like
         chainer.initializers.Normal (mesh.py:20-22), drawn from
         ``np.random.RandomState(seed)`` as the JAX package draws them."""
         return cls(*_obj_arrays(filename_obj, texture_size, normalization,
-                                seed), device=device)
+                                seed), device=device,
+                   spatial_order=spatial_order)
 
     @property
     def num_vertices(self):

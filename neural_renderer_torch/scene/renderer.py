@@ -13,7 +13,10 @@ import torch
 
 from neural_renderer_torch.ops.lighting import lighting
 from neural_renderer_torch.ops.transforms import look, look_at, perspective
-from neural_renderer_torch.ops.vertices_to_faces import vertices_to_faces
+from neural_renderer_torch.ops.vertices_to_faces import (
+    fill_back_faces,
+    vertices_to_faces,
+)
 from neural_renderer_torch.rasterize.api import (
     _as_tensor,
     rasterize,
@@ -52,6 +55,9 @@ class Renderer(object):
 
         # rasterization
         self.rasterizer_eps = 1e-3
+        # a torch.distributed process group over which the face list is
+        # sharded (parallel.make_face_sharded_render), or None
+        self.face_group = None
 
         # the capacities ``tune`` measured, kept as the JAX package keeps
         # them; nothing here reads them: no kernel of the port has a
@@ -76,10 +82,7 @@ class Renderer(object):
         flat = self._transform(face_coords.reshape(bs, nf * 3, 3))
         return flat.reshape(bs, nf, 3, 3)
 
-    @staticmethod
-    def _fill_back_faces(faces):
-        """Duplicate every face back-to-front (renderer.py:37,57,77)."""
-        return torch.cat([faces, torch.flip(faces, dims=[2])], dim=1)
+    _fill_back_faces = staticmethod(fill_back_faces)
 
     @staticmethod
     def _fill_back_textures(textures):
@@ -89,8 +92,12 @@ class Renderer(object):
 
     @staticmethod
     def _mesh(vertices, faces, textures=None):
+        """vertices and textures as f32 tensors on the vertices' device;
+        faces as a tensor (a caller's tensor is passed on as it is, so the
+        vertex scatter keeps its sort, ``ops/vertices_to_faces.py``)."""
         vertices = _as_tensor(vertices)
-        faces = _as_tensor(faces, torch.int64, vertices.device)
+        if not isinstance(faces, torch.Tensor):
+            faces = _as_tensor(faces, torch.int64, vertices.device)
         if textures is not None:
             textures = _as_tensor(textures, device=vertices.device)
         return vertices, faces, textures
@@ -98,19 +105,18 @@ class Renderer(object):
     # ------------------------------------------------------------------
     def render_silhouettes(self, vertices, faces):
         vertices, faces, _ = self._mesh(vertices, faces)
-        if self.fill_back:
-            faces = self._fill_back_faces(faces)
-        face_coords = vertices_to_faces(self._transform(vertices), faces)
+        face_coords = vertices_to_faces(self._transform(vertices), faces,
+                                        self.face_group, self.fill_back)
         return rasterize_silhouettes(face_coords, self.image_size,
-                                     self.anti_aliasing)
+                                     self.anti_aliasing,
+                                     face_group=self.face_group)
 
     def render_depth(self, vertices, faces):
         vertices, faces, _ = self._mesh(vertices, faces)
-        if self.fill_back:
-            faces = self._fill_back_faces(faces)
-        face_coords = vertices_to_faces(self._transform(vertices), faces)
+        face_coords = vertices_to_faces(self._transform(vertices), faces,
+                                        self.face_group, self.fill_back)
         return rasterize_depth(face_coords, self.image_size,
-                               self.anti_aliasing)
+                               self.anti_aliasing, face_group=self.face_group)
 
     def _lit_faces(self, vertices, faces, textures):
         """fill_back, lighting on world-space face coords
@@ -118,9 +124,9 @@ class Renderer(object):
         coords (pointwise, so exact)."""
         vertices, faces, textures = self._mesh(vertices, faces, textures)
         if self.fill_back:
-            faces = self._fill_back_faces(faces)
             textures = self._fill_back_textures(textures)
-        faces_lighting = vertices_to_faces(vertices, faces)
+        faces_lighting = vertices_to_faces(vertices, faces, self.face_group,
+                                           self.fill_back)
         textures = lighting(
             faces_lighting,
             textures,
@@ -135,7 +141,8 @@ class Renderer(object):
         face_coords, textures = self._lit_faces(vertices, faces, textures)
         return rasterize(
             face_coords, textures, self.image_size, self.anti_aliasing,
-            self.near, self.far, self.rasterizer_eps, self.background_color)
+            self.near, self.far, self.rasterizer_eps, self.background_color,
+            self.face_group)
 
     def render_rgbad(self, vertices, faces, textures):
         """All three channels in one pass (no reference Renderer method, but
@@ -145,4 +152,4 @@ class Renderer(object):
         return rasterize_rgbad(
             face_coords, textures, self.image_size, self.anti_aliasing,
             self.near, self.far, self.rasterizer_eps, self.background_color,
-            True, True, True)
+            True, True, True, self.face_group)

@@ -285,8 +285,11 @@ def test_mesh_from_jax_get_batch():
     groups = mt.lr_scales()
     assert [g['lr_scale'] for g in groups] == [0.5, 2.0]
     assert groups[0]['params'][0] is mt.vertices
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        nt.Mesh(TEAPOT, spatial_order=True, device='cpu')
+    # spatial order is ported: the JAX package's permutation exactly
+    ordered = nt.Mesh(TEAPOT, spatial_order=True, device='cpu')
+    np.testing.assert_array_equal(
+        ordered.face_order,
+        nr.Mesh(TEAPOT, texture_size=4, spatial_order=True).face_order)
 
 
 def test_three_adam_steps_match_jax():
