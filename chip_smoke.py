@@ -96,11 +96,28 @@ Phases (any failure exits non-zero; progress goes to stdout):
      package's face-parallel contract; then 3 data-parallel steps (functional
      ``adam``) whose loss must fall, with equal parameters on both ranks;
  16. spatial face order: one timed forward sweep with
-     ``Mesh(spatial_order=True)`` and one without (no claim).
+     ``Mesh(spatial_order=True)`` and one without (no claim);
+ 17. the examples at their own size: ``run`` of
+     ``examples/torch_example{1,2,3,4}.py`` with their defaults on the card,
+     outputs in a temporary directory.  Step-0 losses at their anchors
+     (rtol 1e-5: examples 2 and 4 the JAX package's, example 3 sum(ref^2));
+     example 2 below 101 after 300 steps, example 4 below 70 within 1000,
+     example 3 within 60,000-70,000 from step 50; example 1's 90 frames
+     finite and showing the teapot; every GIF whole; in every training
+     step the forward kernel, both sweeps, the reduction, the binning and
+     the segmented sum launch.  10 steps of each training example under
+     torch.profiler: device ms, device operations and idle share per step
+     (against the run's own steps).  Then each training example's step-0
+     gradient (example 2 the vertices', 3 the textures', 4 the eye's) on
+     the card against the plain versions on the CPU (1e-3 x max |grad|);
+ 18. ``misc/torch_grad_quality.py`` on the card: its 8 rows (max |grad|,
+     d loss / d v0.x) within rtol 1e-3 of the JAX package's, the "darker"
+     gradient at pixel 12 exactly 0.
 
 The last stdout line is the JSON device record.  The line before it lists each
 of the five kernels with its launches on its path (phase 7 for the first four,
-phase 11 for the index kernel), its worst error against the plain version
+phase 11 for the index kernel) and on each example's run (phase 17), its
+worst error against the plain version
 (the out-sweep's over phases 6 and 13),
 its time and the plain version's, its bound (the larger of the bytes it must
 move over the card's memory rate and its operations over the f32 rate, from
@@ -117,7 +134,10 @@ path's vertex scatter.
 """
 
 import argparse
+import contextlib
 import copy
+import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -133,6 +153,7 @@ import torch.multiprocessing as mp
 
 import neural_renderer_torch as nt
 from neural_renderer_torch import _build, parallel
+from neural_renderer_torch.io.image import imread
 from neural_renderer_torch.ops import segments
 from neural_renderer_torch.rasterize import backward as bwd
 from neural_renderer_torch.rasterize import api, backward_cuda, core
@@ -204,6 +225,36 @@ ANCHORS = [
      [[0.98646867, 1.04628897, 0.], [-1.03415668, -0.10403691, 0.],
       [3.00094461, -1.55173182, 0.]]),
 ]
+
+EXAMPLES = os.path.join(ROOT, 'examples')
+EXAMPLE_DATA = os.path.join(EXAMPLES, 'data')
+# the examples' step-0 losses at their own size: examples 2 and 4 from the
+# JAX package on the CPU (jitted and eager alike); example 3 renders black
+# at step 0, so its loss is sum(ref^2), computed from the image
+STEP0_LOSS = {2: 10103.125, 4: 8444.875}
+STEP0_RTOL = 1e-5
+# convergence: example 2 below 1% of its step-0 loss after its 300 steps
+# (the JAX package's record: 1.94), example 4 below its stop loss within
+# 1000 steps (JAX: step 187), example 3 within its azimuth-dependent floor
+# band (JAX: 63,106-68,737) from step 50 on.  Not from step 20: with
+# seeds 0-5 every run met an azimuth whose side was not fitted yet at one
+# step in 20-27, 1,594-2,918 above that azimuth's floor and past 70,000,
+# and from step 50 on all six stayed within 62,786-69,075
+EX2_LAST_BELOW = 101.0
+EX3_FROM_STEP, EX3_BAND = 50, (60000.0, 70000.0)
+# misc/grad_quality.py's rows, the JAX package on the CPU, jitted as the
+# script runs it: pixel -> (max |grad|, d loss / d v0.x)
+GRAD_QUALITY = {
+    21: (18.205432891845703, 17.28289031982422),
+    18: (4.2074875831604, 3.993992805480957),
+    12: (1.657942295074463, 1.5737953186035156),
+    4: (0.9170343279838562, 0.8704881072044373),
+    23: (14.872220993041992, -14.14770221710205),
+    28: (2.652583360671997, -2.5540060997009277),
+    36: (2.233678102493286, -1.1050750017166138),
+    44: (5.235466480255127, -0.7050743103027344),
+}
+GRAD_QUALITY_RTOL = 1e-3
 
 
 def _require(cond, msg):
@@ -902,6 +953,253 @@ def _spawn_ranks(world, seed):
             with open(os.path.join(path, f'rank{r}.json')) as fh:
                 results.append(json.load(fh))
     return results
+
+
+def _load_script(path):
+    """Import a script of the repository (an example, a misc/ study) by
+    its path."""
+    name = 'smoke_' + os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _count_steps(module, record):
+    """Wrap ``module.step`` so that each call appends (the kernel launches
+    it made, its wall seconds up to a synchronize) to ``record``."""
+    inner = module.step
+
+    def step(*args, **kwargs):
+        before = _launches()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = _launches()
+        record.append(({k: after[k] - before[k] for k in after}, seconds))
+        return out
+
+    module.step = step
+
+
+def _run_script(module, argv):
+    """``module.run(argv)`` with its printed progress kept aside: (its
+    result, wall seconds, its launches, its last printed line).  The
+    progress is printed if the run raises."""
+    buf = io.StringIO()
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = module.run(argv)
+        torch.cuda.synchronize()
+    except BaseException:
+        _log(buf.getvalue())
+        raise
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    return out, wall, _launches(), lines[-1] if lines else ''
+
+
+def _check_gif(path):
+    with open(path, 'rb') as fh:
+        data = fh.read()
+    _require(data[:6] == b'GIF89a' and data[-1:] == b'\x3b',
+             f'{path} is not a whole GIF')
+    return len(data)
+
+
+def _near(got, want, rtol):
+    return abs(got - want) <= rtol * abs(want)
+
+
+def _grad_check(name, got, want):
+    """|card - plain| <= FINGERPRINT_TOL x max |plain|; returns the worst
+    error over that max."""
+    got, want = got.detach().cpu(), want.detach()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    _require(bool(torch.isfinite(got).all()) and scale > 0
+             and err <= FINGERPRINT_TOL * scale,
+             f'{name}: the card differs from the plain version by {err} '
+             f'(max |grad| {scale}, tolerance {FINGERPRINT_TOL} x max)')
+    return err / scale
+
+
+def _examples_phase(dev, smi):
+    """Phase 17: the four examples' ``run`` with their defaults on the card
+    (outputs into a temporary directory), their step-0 losses, convergence
+    and kernel launches per training step, a profile of each training
+    example's step, then each one's step-0 gradient against the plain
+    versions on the CPU.  Returns {example: its run's launches}."""
+    mods = {n: _load_script(os.path.join(EXAMPLES, f'torch_example{n}.py'))
+            for n in (1, 2, 3, 4)}
+    steps = {n: [] for n in (2, 3, 4)}
+    for n, record in steps.items():
+        _count_steps(mods[n], record)
+    ref3 = imread(os.path.join(EXAMPLE_DATA, 'example3_ref.png'))
+    step0 = dict(STEP0_LOSS)
+    step0[3] = float(np.sum(np.square(ref3.astype(np.float64) / 255.0)))
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = {1: ['-o', f'{tmp}/example1.gif'],
+                2: ['-oo', f'{tmp}/example2_optimization.gif',
+                    '-or', f'{tmp}/example2_result.gif'],
+                3: ['-or', f'{tmp}/example3_result.gif'],
+                4: ['-or', f'{tmp}/example4_result.gif']}
+        for n in (1, 2, 3, 4):
+            out, wall, launches[f'example{n}'], last = _run_script(mods[n],
+                                                                   argv[n])
+            sizes = [_check_gif(a) for a in argv[n] if a.endswith('.gif')]
+            counts = launches[f'example{n}']
+            if n == 1:
+                nonblack = (out.max(1) > 0).mean((1, 2))
+                _require(out.shape == (90, 3, OUT_SIZE, OUT_SIZE)
+                         and bool(np.isfinite(out).all())
+                         and float(nonblack.min()) > 0.05
+                         and counts['forward_shaded'] >= 90,
+                         f'example 1: {out.shape} frames, finite '
+                         f'{bool(np.isfinite(out).all())}, least teapot '
+                         f'cover {float(nonblack.min())}, launches {counts}')
+                _log(f'example 1: 90 frames at {OUT_SIZE}^2 AA, finite, the '
+                     f'teapot covering {float(nonblack.min()):.3f}-'
+                     f'{float(nonblack.max()):.3f} of each; {wall:.2f} s wall '
+                     f'({90 / wall:.2f} frames/s with the PNG frames and the '
+                     f'GIF, {sizes[0]} bytes) on {smi}; launches {counts}')
+                continue
+            losses = out
+            record = steps[n]
+            _require(len(record) == len(losses), f'example {n}: {len(losses)} '
+                     f'losses from {len(record)} steps')
+            for i, (step_launches, _) in enumerate(record):
+                _require(all(step_launches[k] >= 1 for k in TRAINING_KERNELS),
+                         f'example {n} step {i} launched {step_launches}')
+            _require(all(np.isfinite(losses))
+                     and _near(losses[0], step0[n], STEP0_RTOL),
+                     f'example {n}: step-0 loss {losses[0]}, expected '
+                     f'{step0[n]} (rtol {STEP0_RTOL})')
+            if n == 2:
+                _require(len(losses) == 300 and losses[-1] < EX2_LAST_BELOW,
+                         f'example 2: loss {losses[-1]} after {len(losses)} '
+                         f'steps, expected below {EX2_LAST_BELOW} after 300')
+            elif n == 3:
+                tail = losses[EX3_FROM_STEP:]
+                worst = EX3_FROM_STEP + int(np.argmax(tail))
+                _require(len(losses) == 300 and min(tail) >= EX3_BAND[0]
+                         and max(tail) <= EX3_BAND[1],
+                         f'example 3: from step {EX3_FROM_STEP} the loss '
+                         f'spans {min(tail)}-{max(tail)} (the most at step '
+                         f'{worst}), expected within {EX3_BAND}')
+            else:
+                _require(losses[-1] < mods[4].STOP_LOSS
+                         and len(losses) <= 1000,
+                         f'example 4: loss {losses[-1]} after {len(losses)} '
+                         f'steps, expected below {mods[4].STOP_LOSS} within '
+                         '1000')
+            step_s = sum(s for _, s in record)
+            band = (f'; from step {EX3_FROM_STEP} '
+                    f'{min(losses[EX3_FROM_STEP:]):.4f}-'
+                    f'{max(losses[EX3_FROM_STEP:]):.4f}' if n == 3 else '')
+            _log(f'example {n}: {len(losses)} steps, loss {losses[0]:.4f} '
+                 f'(step 0; expected {step0[n]}) -> {losses[-1]:.4f} '
+                 f'(last){band}; {len(losses) / step_s:.2f} steps/s over the '
+                 f'steps, {wall:.2f} s wall with the frames and GIFs '
+                 f'({", ".join(map(str, sizes))} bytes) on {smi}; every step '
+                 f'launched {", ".join(TRAINING_KERNELS)}; launches {counts}; '
+                 f'its last line: {last}')
+
+    # where a training example's step spends its time: 10 steps of each
+    # under torch.profiler, against the run's own unprofiled steps
+    obj = os.path.join(EXAMPLE_DATA, 'teapot.obj')
+    refs = {n: os.path.join(EXAMPLE_DATA, f'example{n}_ref.png')
+            for n in (2, 3, 4)}
+    mesh2, r2, ref2 = mods[2].build(obj, refs[2], dev)
+    opt2 = nt.Adam(mesh2.lr_scales())
+    mesh3, r3, ref3 = mods[3].build(obj, refs[3], dev)
+    opt3 = nt.Adam(mesh3.lr_scales(), alpha=0.1, beta1=0.5)
+    v4, f4, _, r4, ref4, eye4 = mods[4].build(obj, refs[4], dev)
+    init4, update4 = nt.adam(alpha=0.1)
+    state4 = [init4({'eye': eye4})]
+
+    def step4(_):
+        state4[0] = mods[4].step(eye4, state4[0], update4, r4, v4, f4,
+                                 ref4)[1]
+
+    profiled = {2: lambda _: mods[2].step(mesh2, r2, ref2, opt2),
+                3: lambda azimuth: mods[3].step(mesh3, r3, ref3, opt3,
+                                                azimuth),
+                4: step4}
+    for n, fn in profiled.items():
+        run_ms = 1e3 * np.mean([s for _, s in steps[n]])
+        fn(0.0)                                   # warm-up
+        prof = _step_profile(fn, [float(a) for a in range(0, 360, 36)])
+        if prof is None:
+            _log(f'example {n} step profile: the profiler reported no '
+                 'device time (not measured)')
+            continue
+        dev_ms, wall_ms, by, ops = prof
+        _log(f'example {n} step profile (torch.profiler, 10 steps) on {smi}: '
+             f'device {dev_ms:.3f} ms per step, {_fmt_ops(ops)}; against '
+             f'the run\'s {run_ms:.3f} ms per step the card idles '
+             f'{100 * (1 - dev_ms / run_ms):.1f}% (profiled wall '
+             f'{wall_ms:.3f} ms); per step '
+             + ', '.join(f'{k} {v:.3f} ms' for k, v in by.items()))
+    del mesh2, mesh3, v4, f4, eye4, state4
+
+    # each training example's step 0 on the card and through the plain
+    # versions on the CPU, from the same files
+    t0 = time.perf_counter()
+    grads = {}
+    for device in (dev, torch.device('cpu')):
+        mesh, renderer, image_ref = mods[2].build(obj, refs[2], device)
+        mods[2].loss_fn(mesh, renderer, image_ref).backward()
+        grads.setdefault('vertices (example 2)', []).append(mesh.vertices.grad)
+        mesh, renderer, image_ref = mods[3].build(obj, refs[3], device)
+        # the first azimuth of run's default --seed 0
+        azimuth = np.random.default_rng(0).uniform(0, 360)
+        mods[3].loss_fn(mesh, renderer, image_ref, azimuth).backward()
+        grads.setdefault('textures (example 3)', []).append(mesh.textures.grad)
+        v, f, _, renderer, image_ref, eye = mods[4].build(obj, refs[4],
+                                                          device)
+        g, = torch.autograd.grad(
+            mods[4].loss_fn(eye, renderer, v, f, image_ref), eye)
+        grads.setdefault('eye (example 4)', []).append(g)
+    ratios = {name: _grad_check(f'example step-0 gradient of the {name}',
+                                *pair) for name, pair in grads.items()}
+    _log('examples\' step-0 gradients, the card against the plain versions '
+         'on the CPU: ' + ', '.join(f'{k} {r:.3g} x max |grad|'
+                                   for k, r in ratios.items())
+         + f' (tolerance {FINGERPRINT_TOL} x max; eye gradient card '
+         f'{grads["eye (example 4)"][0].tolist()}, CPU '
+         f'{grads["eye (example 4)"][1].tolist()}); '
+         f'{time.perf_counter() - t0:.1f} s')
+    return launches
+
+
+def _grad_quality_phase(smi):
+    """Phase 18: misc/torch_grad_quality.py on the card against the JAX
+    package's rows."""
+    gq = _load_script(os.path.join(ROOT, 'misc', 'torch_grad_quality.py'))
+    (rows, g_brighter, g_darker), wall, counts, _ = _run_script(gq, [])
+    _require([r[0] for r in rows] == list(GRAD_QUALITY),
+             f'grad quality: rows of pixels {[r[0] for r in rows]}')
+    for px, mag, gx in rows:
+        want = GRAD_QUALITY[px]
+        _require(_near(mag, want[0], GRAD_QUALITY_RTOL)
+                 and _near(gx, want[1], GRAD_QUALITY_RTOL),
+                 f'grad quality pixel {px}: max |grad| {mag}, d/d(v0.x) {gx}, '
+                 f'expected {want} (rtol {GRAD_QUALITY_RTOL})')
+    _require(bool(np.all(g_darker == 0)) and g_brighter[0, 0] > 0,
+             'grad quality: pixel 12\'s "darker" gradient is not exactly 0 '
+             'or its "brighter" one not positive')
+    worst = max(max(abs(m / GRAD_QUALITY[p][0] - 1),
+                    abs(x / GRAD_QUALITY[p][1] - 1)) for p, m, x in rows)
+    _log(f'grad quality: 8 rows within {worst:.3g} (relative) of the JAX '
+         f'package\'s (rtol {GRAD_QUALITY_RTOL}): '
+         + ', '.join(f'{p}: {m:.5f} / {x:+.5f}' for p, m, x in rows)
+         + f'; pixel 12 "brighter" {g_brighter[0, 0]:+.5f}, "darker" '
+         f'exactly 0; {wall:.2f} s on {smi}; launches {counts}')
 
 
 def main():
@@ -1903,6 +2201,13 @@ def main():
          f'file order, {sweep_ms[True]:.3f} ms with Mesh(spatial_order=True) '
          f'on {smi} (one sweep each, no claim)')
 
+    # ---- 17. the examples at their own size ----
+    torch.cuda.empty_cache()
+    example_launches = _examples_phase(dev, smi)
+
+    # ---- 18. the gradient-quality study ----
+    _grad_quality_phase(smi)
+
     sources = {
         'forward_shaded': ('neural_renderer_torch/csrc/forward_shaded.cu',
                            'neural_renderer_tpu/rasterize/'
@@ -1944,6 +2249,8 @@ def main():
         'ms': times[name][0], 'plain_ms': times[name][1],
         'bound_ms': bounds[name][0], 'bound_by': bounds[name][1],
         'library_ms': library.get(name), 'kernel_alone_ms': alone[name],
+        'examples_launches': {ex: c[name]
+                              for ex, c in example_launches.items()},
         **extra.get(name, {}),
     } for name, (src, rep, err_k, counts) in sources.items()]}))
     _log(json.dumps({'ok': True, 'device': {

@@ -16,8 +16,8 @@ custom ``Adam`` and its functional ``adam``, ``measure_scene`` / ``tune``
 over the index-and-depth z-buffer ``csrc/forward_index.cu``, batch and
 face-axis parallelism over ``torch.distributed`` (``parallel``), spatial
 face order, OBJ loading (with the native parser) and saving, and the image
-helpers.  The examples are not ported yet (ROADMAP.md).  The
-package imports no JAX;
+helpers (PNG and GIF on the standard library, no Pillow).  The examples
+are ``examples/torch_example{1,2,3,4}.py``.  The package imports no JAX;
 ``convert`` carries a JAX ``Renderer``'s settings, a JAX ``Mesh`` and numpy
 mesh arrays over.
 

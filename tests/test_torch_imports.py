@@ -4,7 +4,10 @@ In a fresh interpreter where ``import jax`` and ``import PIL`` fail (their
 ``sys.modules`` entries are None), ``neural_renderer_torch`` and all its
 modules (``parallel``, the native OBJ parser, spatial order, the segmented
 sum) import, load the teapot OBJ, save it untextured, order its faces and
-render it on the CPU.
+render it on the CPU.  Likewise the port's examples
+(``examples/torch_example{1,2,3,4}.py``) and gradient-quality study
+(``misc/torch_grad_quality.py``) import where jax, Pillow, imageio and tqdm
+cannot, and import neither JAX nor ``neural_renderer_tpu``.
 """
 
 import os
@@ -50,3 +53,37 @@ def test_imports_without_jax_and_pil():
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=ROOT))
     assert 'IMPORT-OK' in out.stdout, (out.stdout, out.stderr)
+
+
+# the port's examples and study, imported by path where jax, Pillow,
+# imageio and tqdm cannot be imported; example 1 renders one small frame
+SCRIPTS = r'''
+import importlib.util, sys
+for m in ('jax', 'PIL', 'imageio', 'tqdm'):
+    sys.modules[m] = None
+import torch
+torch.set_num_threads(1)
+mods = {}
+for path in ['examples/torch_example1.py', 'examples/torch_example2.py',
+             'examples/torch_example3.py', 'examples/torch_example4.py',
+             'misc/torch_grad_quality.py']:
+    spec = importlib.util.spec_from_file_location(path.replace('/', '_'), path)
+    mods[path] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mods[path])
+    assert callable(mods[path].run), path
+ex1 = mods['examples/torch_example1.py']
+v, f, t, r = ex1.build('examples/data/teapot.obj', 'cpu')
+r.image_size = 32
+assert ex1.render_sweep(r, v, f, t, [30]).shape == (1, 3, 32, 32)
+assert not any(m.startswith('jax') and sys.modules[m] is not None
+               for m in sys.modules)
+assert not any(m.startswith('neural_renderer_tpu') for m in sys.modules)
+print('SCRIPTS-OK')
+'''
+
+
+def test_examples_and_study_import_without_jax():
+    out = subprocess.run([sys.executable, '-c', SCRIPTS], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert 'SCRIPTS-OK' in out.stdout, (out.stdout, out.stderr)
