@@ -112,11 +112,28 @@ Phases (any failure exits non-zero; progress goes to stdout):
      the card against the plain versions on the CPU (1e-3 x max |grad|);
  18. ``misc/torch_grad_quality.py`` on the card: its 8 rows (max |grad|,
      d loss / d v0.x) within rtol 1e-3 of the JAX package's, the "darker"
-     gradient at pixel 12 exactly 0.
+     gradient at pixel 12 exactly 0;
+ 19. the dataset renderer and the real ShapeNet model
+     (``tests/data/4e49873292196f02574b5684eaec43e9``, every covered pixel
+     a depth tie between coincident faces): ``misc/torch_render.py`` at its
+     defaults over tests/data (24 views of each of its 3 meshes, 72 PNGs,
+     each read back), its launches counted, wall seconds and images/s, one
+     call (the model's 24 views) timed and profiled: device ms, idle share,
+     device operations.  The model's forward maps at 512^2 over 24 views:
+     batched views bit-equal to single ones, the kernel against the plain
+     version on the card (face_index_map equal, phase 3's tolerances) and
+     on CPU copies of two views.  A training step on 32 views (256^2 AA,
+     ts 2): the three backward kernels against their plain versions with
+     phase 6's bands (random and ``sum(image)`` output gradients), every
+     training kernel launched, two steps bitwise equal.  ``tune`` on the
+     model over the 8 bench azimuths, and the index kernel against its
+     plain version on the 24 views.
 
 The last stdout line is the JSON device record.  The line before it lists each
 of the five kernels with its launches on its path (phase 7 for the first four,
-phase 11 for the index kernel) and on each example's run (phase 17), its
+phase 11 for the index kernel), on each example's run (phase 17) and on
+phase 19's runs (the dataset renderer, the model's training step and its
+``tune``), its
 worst error against the plain version
 (the out-sweep's over phases 6 and 13),
 its time and the plain version's, its bound (the larger of the bytes it must
@@ -136,6 +153,7 @@ path's vertex scatter.
 import argparse
 import contextlib
 import copy
+import glob
 import importlib.util
 import io
 import json
@@ -553,6 +571,25 @@ def _device_ops(fn, reps=5):
             fn()
         torch.cuda.synchronize()
     return _op_counts(prof, reps)
+
+
+def _top_device_ops(fn, n=6):
+    """The ``n`` device operations (kernels, copies, memsets) that take
+    the most time in one call of ``fn``, from torch.profiler: [(name, ms
+    summed over the call)]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by[ev.name] = by.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    return sorted(((k, us / 1e3) for k, us in by.items()),
+                  key=lambda kv: -kv[1])[:n]
 
 
 def _fmt_ops(ops):
@@ -1200,6 +1237,213 @@ def _grad_quality_phase(smi):
          + ', '.join(f'{p}: {m:.5f} / {x:+.5f}' for p, m, x in rows)
          + f'; pixel 12 "brighter" {g_brighter[0, 0]:+.5f}, "darker" '
          f'exactly 0; {wall:.2f} s on {smi}; launches {counts}')
+
+
+def _maps_vs_cpu(name, settings, faces, textures):
+    """The forward kernel's maps against its plain version on CPU copies of
+    the same inputs: face_index_map equal, the other maps within phase 3's
+    tolerances.  Returns ({map: bit-equal}, worst abs error)."""
+    got = forward_cuda.forward_shaded(settings, faces, textures)
+    want = forward_cuda.forward_shaded_plain(settings, faces.cpu(),
+                                             textures.cpu())
+    mism = int((got['face_index_map'].cpu() != want['face_index_map']).sum())
+    _require(mism == 0, f'{name}: {mism} face_index_map mismatches against '
+             'the plain version on the CPU')
+    equal, worst = {}, 0.0
+    for key in ('depth_map', 'weights', 'xy', 'z', 'rgb'):
+        a, b = got[key].cpu(), want[key]
+        rtol, atol = (RGB_RTOL, RGB_ATOL) if key == 'rgb' else (RTOL, ATOL)
+        _require(torch.allclose(a, b, rtol=rtol, atol=atol),
+                 f'{name}: {key} differs from the plain version on the CPU '
+                 f'by {float((a - b).abs().max())}')
+        equal[key] = _bits_equal(a, b)
+        worst = max(worst, float((a - b).abs().max()))
+    return equal, worst
+
+
+def _render_phase(dev, smi, rng, bworst):
+    """Phase 19: misc/torch_render.py at its defaults over tests/data, then
+    the real model (every covered pixel a depth tie) through every kernel:
+    the forward maps against the plain versions (on CPU copies and on the
+    card) with batched views bit-equal to single ones, a training step's
+    backward kernels against theirs, repeat steps bitwise equal, and tune
+    with the index kernel against its plain version.  Updates ``bworst``;
+    returns ({path: its launches}, forward worst error, index worst
+    error)."""
+    tr = _load_script(os.path.join(ROOT, 'misc', 'torch_render.py'))
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, wall, launches['torch_render'], _ = _run_script(
+            tr, ['-i', DATA, '-o', tmp])
+        meshes = sorted(glob.glob(os.path.join(DATA, '**', '*.obj'),
+                                  recursive=True))
+        names = [os.path.splitext(os.path.relpath(m, DATA))[0].replace(
+            os.sep, '_') + f'_{vi:02d}.png' for m in meshes for vi in range(24)]
+        _require([os.path.basename(p) for p in paths] == names
+                 and sorted(os.listdir(tmp)) == sorted(names),
+                 f'torch_render wrote {len(paths)} PNGs for {len(meshes)} '
+                 'meshes, not the 24 views of each under their names')
+        cover = {}
+        for p in paths:
+            image = imread(p)
+            _require(image.shape == (OUT_SIZE, OUT_SIZE, 3)
+                     and image.dtype == np.uint8,
+                     f'{p}: {image.shape} {image.dtype}')
+            cover[os.path.basename(p)] = float((image.max(-1) > 12).mean())
+        _require(min(cover.values()) > 0.01,
+                 f'a view shows almost nothing: {min(cover, key=cover.get)}')
+    counts = launches['torch_render']
+    _require(counts['forward_shaded'] >= len(meshes)
+             and counts['bin_faces'] >= len(meshes),
+             f'torch_render launched {counts}')
+    _log(f'torch_render: {len(paths)} PNGs of {len(meshes)} meshes (24 '
+         f'views each at {OUT_SIZE}^2 AA, ts 2, up to {tr.MAX_VIEWS} views a '
+         f'call), each read back ({min(cover.values()):.3f}-'
+         f'{max(cover.values()):.3f} of a view covered); {wall:.2f} s wall, '
+         f'{len(paths) / wall:.2f} images/s with the OBJ and JPEG loads and '
+         f'the PNG writes, on {smi}; launches {counts}')
+
+    # the model's 24 views in one call, as the script renders them
+    model = os.path.join(DATA, '4e49873292196f02574b5684eaec43e9',
+                         'model.obj')
+    vm, fm, tm = tr.load_mesh(model, 2, dev)
+    eyes24 = tr.view_eyes(24, DISTANCE, ELEVATION, dev)
+    renderer = nt.Renderer()
+    renderer.image_size = OUT_SIZE
+
+    def views():
+        return tr.render_views(renderer, vm, fm, tm, eyes24)
+
+    batched = views()
+    single = np.concatenate([tr.render_views(renderer, vm, fm, tm,
+                                             eyes24[i:i + 1])
+                             for i in range(24)])
+    _require(np.array_equal(batched, single), 'the model\'s 24 views in one '
+             'call differ from one view per call')
+    t0 = time.perf_counter()
+    for _ in range(3):
+        views()
+    call_ms = (time.perf_counter() - t0) * 1e3 / 3
+    prof = _step_profile(lambda _: views(), range(3))
+    if prof is None:
+        _log('torch_render call profile: the profiler reported no device '
+             'time (not measured)')
+    else:
+        dev_ms, wall_ms, by, ops = prof
+        _log(f'torch_render call (the model, 24 views, {OUT_SIZE}^2 AA, '
+             f'ts 2, images copied to the host) on {smi}: {call_ms:.3f} ms '
+             f'a call; torch.profiler over 3 calls: device {dev_ms:.3f} ms '
+             f'a call, {_fmt_ops(ops)}; the card idles '
+             f'{100 * (1 - dev_ms / call_ms):.1f}% (profiled wall '
+             f'{wall_ms:.3f} ms); forward kernel {by["forward_shaded"]:.3f} '
+             'ms a call; the largest device operations of one call: '
+             + ', '.join(f'{k[:60]} {ms:.3f} ms'
+                         for k, ms in _top_device_ops(views)))
+
+    # the kernel's maps: bit-equal between batch and single views, against
+    # the plain version on the card (24 views) and on the CPU (2 views)
+    renderer.eye = eyes24
+    fc24, tx24 = renderer._lit_faces(vm.expand(24, -1, -1),
+                                     fm.expand(24, -1, -1),
+                                     tm.expand((24,) + tm.shape[1:]))
+    s512 = RasterizeSettings(image_size=RASTER, eps=1e-3)
+    whole = forward_cuda.forward_shaded(s512, fc24, tx24)
+    for i in range(24):
+        one = forward_cuda.forward_shaded(s512, fc24[i:i + 1],
+                                          tx24[i:i + 1])
+        for key in ('face_index_map', 'depth_map', 'weights', 'xy', 'z',
+                    'rgb'):
+            a, b = whole[key][i:i + 1], one[key]
+            _require(torch.equal(a, b) if key == 'face_index_map'
+                     else _bits_equal(a, b),
+                     f'model view {i}: {key} of the batch differs from the '
+                     'single view')
+    fim = whole['face_index_map']
+    nf_model = fm.shape[1]
+    covered = fim >= 0
+    own = int((fim[covered] < nf_model).sum())
+    fworst = _compare(f'model {RASTER}^2 bs 24 ts 2 (all ties)', s512, fc24,
+                      tx24)
+    t0 = time.perf_counter()
+    cpu_equal, cpu_worst = _maps_vs_cpu(
+        f'model {RASTER}^2 views 0 and 9', s512, fc24[[0, 9]],
+        tx24[[0, 9]])
+    _log(f'model forward maps at {RASTER}^2, 24 views: face_index_map of the '
+         f'kernel equal to the plain version on the card; batched views '
+         f'bit-equal to single ones; {int(covered.sum())} covered pixels, '
+         f'{own} won by one of the model\'s own {nf_model} faces, the rest by '
+         f'a back-filled copy; views 0 and 9 against the '
+         f'plain version on CPU copies: index equal, bit-equal {cpu_equal}, '
+         f'max abs err {cpu_worst:.3g} ({time.perf_counter() - t0:.1f} s)')
+
+    # a training step on 32 views: the backward kernels against their plain
+    # versions, repeat steps bitwise equal
+    eyes32 = tr.view_eyes(BATCH, DISTANCE, ELEVATION, dev)
+    trainer = nt.Renderer()
+    trainer.image_size = OUT_SIZE
+    trainer.eye = eyes32
+    f32 = fm.expand(BATCH, -1, -1)
+    fc32, tx32 = trainer._lit_faces(vm.expand(BATCH, -1, -1), f32,
+                                    tm.expand((BATCH,) + tm.shape[1:]))
+    s_rgb = RasterizeSettings(image_size=RASTER, eps=1e-3, return_alpha=False,
+                              return_depth=False)
+    nf2 = fc32.shape[1]
+    maps, grads = _bwd_scene(s_rgb, fc32, tx32, rng, dev)
+    _compare_backward(f'model {RASTER}^2 bs {BATCH} ts 2 rgb', s_rgb, maps,
+                      grads, nf2, 2, bworst)
+    _compare_backward(f'model {RASTER}^2 bs {BATCH} ts 2 rgb, sum(image)',
+                      s_rgb, maps, _sum_image_grads(BATCH, RASTER, dev), nf2,
+                      2, bworst)
+    del maps, grads, fc32, tx32
+    vg = vm.repeat(BATCH, 1, 1).requires_grad_()
+    tg = tm.repeat(BATCH, 1, 1, 1, 1, 1).requires_grad_()
+
+    def step():
+        vg.grad = None
+        tg.grad = None
+        image = trainer.render(vg, f32, tg)
+        (image * torch.sin(image)).sum().backward()
+        return vg.grad.clone(), tg.grad.clone()
+
+    step()                                        # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    first = step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches['model_step'] = _launches()
+    _require(all(launches['model_step'][k] >= 1 for k in TRAINING_KERNELS),
+             f'the model\'s training step launched {launches["model_step"]}')
+    _require(_grads_equal(first, step()), 'two training steps of the model '
+             'gave different gradients')
+    _require(_grads_ok(first), 'the model\'s gradients are not finite and '
+             'non-zero')
+    _log(f'model training step: {BATCH} views at {OUT_SIZE}^2 AA, ts 2, '
+         f'sum(image * sin(image)) to vertices and textures: {step_ms:.3f} ms '
+         f'on {smi}; two steps bitwise equal, gradients finite (the 8 '
+         f'zero-area faces included); launches {launches["model_step"]}')
+    del vg, tg, first
+
+    # tune on the model over the 8 bench azimuths, and the index kernel
+    tuner = nt.Renderer()
+    tuner.image_size = OUT_SIZE
+    bench_eyes = [nt.get_points_from_angles(DISTANCE, ELEVATION, a)
+                  for a in AZIMUTHS]
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    overrides = nt.tune(tuner, vm[0], fm[0], eyes=bench_eyes)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    launches['model_tune'] = _launches()
+    _require(launches['model_tune']['forward_index'] >= len(bench_eyes),
+             f'tune on the model launched {launches["model_tune"]}')
+    iworst = _compare_index(f'model {RASTER}^2 bs 24 (all ties)', s512, fc24)
+    _log(f'model tune over {len(bench_eyes)} azimuths, {OUT_SIZE}^2 AA: '
+         f'{overrides} in {tune_s:.4f} s on {smi}; launches '
+         f'{launches["model_tune"]}')
+    return launches, max(fworst, cpu_worst), iworst
 
 
 def main():
@@ -2208,6 +2452,12 @@ def main():
     # ---- 18. the gradient-quality study ----
     _grad_quality_phase(smi)
 
+    # ---- 19. the dataset renderer and the real model ----
+    torch.cuda.empty_cache()
+    render_launches, fworst, iworst19 = _render_phase(dev, smi, rng, bworst)
+    worst = max(worst, fworst)
+    iworst = max(iworst, iworst19)
+
     sources = {
         'forward_shaded': ('neural_renderer_torch/csrc/forward_shaded.cu',
                            'neural_renderer_tpu/rasterize/'
@@ -2251,6 +2501,8 @@ def main():
         'library_ms': library.get(name), 'kernel_alone_ms': alone[name],
         'examples_launches': {ex: c[name]
                               for ex, c in example_launches.items()},
+        'phase19_launches': {path: c[name]
+                             for path, c in render_launches.items()},
         **extra.get(name, {}),
     } for name, (src, rep, err_k, counts) in sources.items()]}))
     _log(json.dumps({'ok': True, 'device': {

@@ -32,6 +32,11 @@ import numpy as np
 from neural_renderer_torch.io.image import imread, imsave01
 
 
+class NoMaterialLibrary(RuntimeError):
+    """``load_obj(..., load_texture=True)`` on an OBJ with no ``mtllib``
+    line (the JAX package raises a plain RuntimeError with this message)."""
+
+
 def load_mtl(filename_mtl):
     """Load Kd colors and map_Kd texture filenames per material
     (reference load_obj.py:9-22)."""
@@ -205,7 +210,7 @@ def load_obj(filename_obj, normalization=True, texture_size=4,
                 textures = load_textures(
                     filename_obj, filename_mtl, texture_size)
         if textures is None:
-            raise RuntimeError('Failed to load textures.')
+            raise NoMaterialLibrary('Failed to load textures.')
 
     if normalization:
         # normalize into a unit cube centered at zero (load_obj.py:188-192)

@@ -39,7 +39,11 @@ def lighting(
         v10 = faces[:, :, 0] - faces[:, :, 1]
         v12 = faces[:, :, 2] - faces[:, :, 1]
         normals = _normalize(cross(v10, v12))
-        cos = torch.relu(torch.sum(normals * direction[:, None, :], dim=2))
+        # max(x, 0) as the JAX package takes it (jnp.maximum): at a face
+        # edge-on to the light (x exactly 0, common on axis-aligned scanned
+        # geometry) the gradient is halved, where torch.relu's would be 0
+        dot = torch.sum(normals * direction[:, None, :], dim=2)
+        cos = torch.maximum(dot, dot.new_zeros(()))
         light = light + (intensity_directional
                          * color_directional[:, None, :] * cos[:, :, None])
 

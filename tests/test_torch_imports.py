@@ -5,9 +5,11 @@ In a fresh interpreter where ``import jax`` and ``import PIL`` fail (their
 modules (``parallel``, the native OBJ parser, spatial order, the segmented
 sum) import, load the teapot OBJ, save it untextured, order its faces and
 render it on the CPU.  Likewise the port's examples
-(``examples/torch_example{1,2,3,4}.py``) and gradient-quality study
-(``misc/torch_grad_quality.py``) import where jax, Pillow, imageio and tqdm
-cannot, and import neither JAX nor ``neural_renderer_tpu``.
+(``examples/torch_example{1,2,3,4}.py``), gradient-quality study
+(``misc/torch_grad_quality.py``) and dataset renderer
+(``misc/torch_render.py``, which renders an OBJ without materials there)
+import where jax, Pillow, imageio and tqdm cannot, and import neither JAX
+nor ``neural_renderer_tpu``.
 """
 
 import os
@@ -55,8 +57,9 @@ def test_imports_without_jax_and_pil():
     assert 'IMPORT-OK' in out.stdout, (out.stdout, out.stderr)
 
 
-# the port's examples and study, imported by path where jax, Pillow,
-# imageio and tqdm cannot be imported; example 1 renders one small frame
+# the port's examples, study and dataset renderer, imported by path where
+# jax, Pillow, imageio and tqdm cannot be imported; example 1 renders one
+# small frame, the dataset renderer one view of the tetrahedron
 SCRIPTS = r'''
 import importlib.util, sys
 for m in ('jax', 'PIL', 'imageio', 'tqdm'):
@@ -66,7 +69,7 @@ torch.set_num_threads(1)
 mods = {}
 for path in ['examples/torch_example1.py', 'examples/torch_example2.py',
              'examples/torch_example3.py', 'examples/torch_example4.py',
-             'misc/torch_grad_quality.py']:
+             'misc/torch_grad_quality.py', 'misc/torch_render.py']:
     spec = importlib.util.spec_from_file_location(path.replace('/', '_'), path)
     mods[path] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mods[path])
@@ -75,6 +78,12 @@ ex1 = mods['examples/torch_example1.py']
 v, f, t, r = ex1.build('examples/data/teapot.obj', 'cpu')
 r.image_size = 32
 assert ex1.render_sweep(r, v, f, t, [30]).shape == (1, 3, 32, 32)
+import shutil, tempfile
+with tempfile.TemporaryDirectory() as d:
+    shutil.copy('tests/data/tetrahedron.obj', d)
+    paths = mods['misc/torch_render.py'].run(
+        ['-i', d, '-o', d + '/out', '-n', '1', '-is', '16', '--device', 'cpu'])
+    assert [p.rsplit('/', 1)[1] for p in paths] == ['tetrahedron_00.png']
 assert not any(m.startswith('jax') and sys.modules[m] is not None
                for m in sys.modules)
 assert not any(m.startswith('neural_renderer_tpu') for m in sys.modules)

@@ -87,6 +87,25 @@ def _grads(method, aa, v, f, tx, weights):
     return got, want
 
 
+def _assert_grads_of(*args):
+    """``_assert_grads`` of ``_grads(*args)``; on a mismatch both sides run
+    again and the message says which one moved (ROADMAP Queue 3: one
+    failure in 20 runs of the [2-False] case, not reproduced since)."""
+    got, want = _grads(*args)
+    try:
+        _assert_grads(got, want)
+    except AssertionError as e:
+        again = _grads(*args)
+        moved = [side for side, first, second in (('port', got, again[0]),
+                                                  ('JAX', want, again[1]))
+                 if not all(np.array_equal(np.asarray(a), np.asarray(b))
+                            for a, b in zip(first, second))]
+        raise AssertionError(
+            f'{e}\nrun again: ' + (' and '.join(moved) + ' moved' if moved
+                                    else 'both sides repeat their gradients '
+                                    'bit for bit')) from None
+
+
 def _weights(rng, shapes):
     return [rng.normal(0, 1, s).astype(np.float32) for s in shapes]
 
@@ -98,8 +117,8 @@ def test_render_grads_match_jax(batch, aa, ts):
     rng = np.random.RandomState(ts)
     tx = rng.uniform(0.1, 1, (2, f.shape[1], ts, ts, ts, 3)).astype(
         np.float32)
-    _assert_grads(*_grads('render', aa, v, f, tx,
-                          _weights(rng, [(2, 3, IS, IS)])))
+    _assert_grads_of('render', aa, v, f, tx,
+                     _weights(rng, [(2, 3, IS, IS)]))
 
 
 @pytest.mark.parametrize('aa', [False, True])
@@ -107,8 +126,8 @@ def test_render_grads_match_jax(batch, aa, ts):
 def test_silhouette_and_depth_grads_match_jax(batch, aa, method):
     v, f = batch
     rng = np.random.RandomState(7)
-    _assert_grads(*_grads(method, aa, v, f, None,
-                          _weights(rng, [(2, IS, IS)])))
+    _assert_grads_of(method, aa, v, f, None,
+                     _weights(rng, [(2, IS, IS)]))
 
 
 @pytest.mark.parametrize('aa', [False, True])
@@ -118,7 +137,7 @@ def test_render_rgbad_grads_match_jax(batch, aa):
     tx = rng.uniform(0.1, 1, (2, f.shape[1], 2, 2, 2, 3)).astype(np.float32)
     w = _weights(rng, [(2, 3, IS, IS), (2, IS, IS), (2, IS, IS)])
     w[2] *= 0.01
-    _assert_grads(*_grads('render_rgbad', aa, v, f, tx, w))
+    _assert_grads_of('render_rgbad', aa, v, f, tx, w)
 
 
 def test_rasterize_class_grads_match_rgbad():
