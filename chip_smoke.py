@@ -16,8 +16,14 @@ Phases (any failure exits non-zero; progress goes to stdout):
      shape.  On every scene the device setup and binning
      (``forward_cuda.bin_setup``) against ``_face_records``,
      ``_index_records`` and ``bin_faces``: records bit-equal, ``start``,
-     ``ids``, ``order`` and ``first`` equal, repeat runs bitwise equal;
-     timed alone at the main path's shape;
+     ``ids``, ``order`` and ``first`` equal, repeat runs bitwise equal
+     (also at nf 1, 31, 129 and 300, the edges of its 128-face chunks,
+     with a NaN face);
+     at the main path's shape and on the real model's 24 views (as phase 19
+     renders them: a face over 252 tiles, lists of up to 944 faces) lists
+     equal and timed against the plain version in turns, with the device
+     time of each of its operations, its device operations per call and
+     the wait of its one host sync (the call less its device time);
   4. the forward-only path: ``Renderer().render`` on the teapot at batch 32,
      256^2 with anti-aliasing (512^2 raster), ts 2, over the 8 bench
      azimuths, counting kernel launches, then one more sweep under
@@ -129,25 +135,24 @@ Phases (any failure exits non-zero; progress goes to stdout):
      model over the 8 bench azimuths, and the index kernel against its
      plain version on the 24 views.
 
-The last stdout line is the JSON device record.  The line before it lists each
-of the five kernels with its launches on its path (phase 7 for the first four,
-phase 11 for the index kernel), on each example's run (phase 17) and on
-phase 19's runs (the dataset renderer, the model's training step and its
-``tune``), its
-worst error against the plain version
-(the out-sweep's over phases 6 and 13),
-its time and the plain version's, its bound (the larger of the bytes it must
-move over the card's memory rate and its operations over the f32 rate, from
-this run's inputs) and the library side's time where PyTorch has a call for
-the function's core: for the per-face reduction, its K6 expansion, the
-covered rows' gather and one ``index_add_``, from the kernel's own inputs.
-The out-sweep's and the reduction's entries also carry the other timings of
-phase 6.  The line before that gives the setup and binning (not a TPU
-kernel: the JAX package bins in XLA) with its launches in phase 7, its
-times and its bound, and the one before that the segmented sum (not a TPU
-kernel either) with its launches in phase 7 (and per step), its device
-time per step from phase 7's profile, and phase 14's numbers at the main
-path's vertex scatter.
+The last stdout line is the JSON device record.  The line before it lists
+seven kernels: the five TPU kernels' counterparts, the setup and binning
+(``bin_faces``) and the segmented sum (``segment_sum``), the last two not TPU
+kernels (the JAX package does both in XLA).  Each has its launches on its
+path (phase 7 for the training kernels, phase 11 for the index kernel) and
+per step, on each example's run (phase 17) and on phase 19's runs (the
+dataset renderer, the model's training step and its ``tune``), its worst
+error against the plain version (the out-sweep's over phases 6 and 13),
+its time and the plain version's, its bound (the larger of the bytes it
+must move over the card's memory rate and its operations over the f32 rate,
+from this run's inputs) and the library call's time where PyTorch has one:
+for the per-face reduction, its K6 expansion, the covered rows' gather and
+one ``index_add_`` from the kernel's own inputs; for the segmented sum one
+``index_add_`` of its rows.  The out-sweep's and the reduction's entries
+also carry the other timings of phase 6, the binning's those of phase 3
+(per device operation, the sync's wait, the model's 24 views), the
+segmented sum's its device time per step from phase 7's profile and phase
+14's numbers at the ts 8 texture scale.
 """
 
 import argparse
@@ -181,6 +186,8 @@ from neural_renderer_torch.rasterize.config import RasterizeSettings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, 'tests', 'data')
+# the real ShapeNet model (every covered pixel a depth tie)
+MODEL = os.path.join(DATA, '4e49873292196f02574b5684eaec43e9', 'model.obj')
 BATCH = 32
 OUT_SIZE = 256                 # the main path's output; its raster is 2x
 RASTER = 2 * OUT_SIZE
@@ -192,9 +199,8 @@ KERNELS = ('forward_shaded', 'forward_index', 'backward_sweeps',
 TRAINING_KERNELS = ('forward_shaded', 'insweep', 'outsweep', 'face_reduce',
                     'bin_faces', 'segment_sum')
 # the setup and binning's device operations, by the substrings of their
-# profiler names: its own kernels, CUB's scans and the counters' memset
-BINNING_OPS = ('bin_setup_kernel', 'bin_finish_kernel', 'bin_fill_kernel',
-               'DeviceScan', 'Memset (Device)')
+# profiler names: its count and fill kernels and CUB's scan (two kernels)
+BINNING_OPS = ('bin_count_kernel', 'bin_fill_kernel', 'DeviceScan')
 
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
 # device memory bytes/s and f32 operations/s outside the tensor cores
@@ -480,9 +486,11 @@ def _time_ms(fn, reps, warmup=1):
 def _kernel_device_ms(fn, reps, kernel_name):
     """Device time per call of the CUDA kernels whose name contains
     ``kernel_name`` (a substring, or a tuple of them; summed over the
-    kernels one call launches), from torch.profiler: each kernel's mean
-    duration over the launches the profiler caught, which need not be all
-    ``reps`` of them; None where the profiler reports no device time."""
+    kernels one call launches), from torch.profiler's device events: each
+    kernel's mean duration over the launches the profiler caught, which
+    need not be all ``reps`` of them, times its launches per call; None
+    where the profiler reports no device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     patterns = ((kernel_name,) if isinstance(kernel_name, str)
                 else kernel_name)
@@ -493,11 +501,14 @@ def _kernel_device_ms(fn, reps, kernel_name):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if any(p in ev.key for p in patterns) and ev.count:
-            total += getattr(ev, 'device_time_total',
-                             getattr(ev, 'cuda_time_total', 0.0)) / ev.count
+    by = {}                                     # name: [us, events]
+    for ev in prof.events():
+        if (ev.device_type == DeviceType.CUDA
+                and any(p in ev.name for p in patterns)):
+            entry = by.setdefault(ev.name, [0.0, 0])
+            entry[0] += ev.time_range.elapsed_us()
+            entry[1] += 1
+    total = sum(us / n * max(1, round(n / reps)) for us, n in by.values())
     return total / 1000.0 if total > 0 else None
 
 
@@ -573,23 +584,74 @@ def _device_ops(fn, reps=5):
     return _op_counts(prof, reps)
 
 
-def _top_device_ops(fn, n=6):
-    """The ``n`` device operations (kernels, copies, memsets) that take
-    the most time in one call of ``fn``, from torch.profiler: [(name, ms
-    summed over the call)]."""
+def _op_name(name):
+    """A profiler event's name without its namespaces, template arguments
+    and parameters: 'bin_count_kernel', 'DeviceScanKernel', 'Memcpy DtoH'."""
+    name = name.replace('(anonymous namespace)::', '')
+    name = name[5:] if name.startswith('void ') else name
+    return name.split('<')[0].split('(')[0].split('::')[-1].strip()
+
+
+def _op_times(fn, reps=10, name=_op_name):
+    """{device operation: ms per call of ``fn``} over ``reps`` calls after
+    one more, from torch.profiler; operations go by ``name`` of their
+    profiler names (by default cut to the function's own name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     by = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
-            by[ev.name] = by.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-    return sorted(((k, us / 1e3) for k, us in by.items()),
-                  key=lambda kv: -kv[1])[:n]
+            key = name(ev.name)
+            by[key] = by.get(key, 0.0) + ev.time_range.elapsed_us()
+    return {k: us / reps / 1e3 for k, us in by.items()}
+
+
+def _top_device_ops(fn, n=6):
+    """The ``n`` device operations (kernels, copies, memsets) that take
+    the most time in one call of ``fn``, from torch.profiler: [(name, ms
+    summed over the call)]."""
+    ops = _op_times(fn, reps=1, name=lambda full: full)
+    return sorted(ops.items(), key=lambda kv: -kv[1])[:n]
+
+
+def _binning_times(name, settings, faces, tile, smi):
+    """The setup and binning of ``faces`` at ``tile`` as ``forward_shaded``
+    runs it, against ``bin_setup_plain`` in turns (kernel, plain, kernel,
+    plain): {ms, plain_ms, alone_ms (its device operations, profiler),
+    sync_wait_ms (the call less its device time: the pair total's readback
+    and what the host does around it), op_ms (each device operation),
+    device_ops, plain_device_ops}."""
+    def binning():
+        return forward_cuda.bin_setup(settings, faces, tile)
+
+    def binning_plain():
+        return forward_cuda.bin_setup_plain(settings, faces, tile)
+
+    b1 = _time_ms(binning, reps=20, warmup=3)
+    bp1 = _time_ms(binning_plain, reps=5, warmup=1)
+    b2 = _time_ms(binning, reps=20)
+    bp2 = _time_ms(binning_plain, reps=5)
+    alone = _kernel_device_ms(binning, 10, BINNING_OPS)
+    ops, plain_ops = _device_ops(binning), _device_ops(binning_plain)
+    op_ms = _op_times(binning)
+    out = dict(ms=b1, plain_ms=bp1, alone_ms=alone,
+               sync_wait_ms=None if alone is None else b1 - alone,
+               op_ms=op_ms, device_ops=sum(ops.values()),
+               plain_device_ops=sum(plain_ops.values()))
+    _log(f'setup + binning {name} on {smi}: bin_setup {b1:.3f} / {b2:.3f} '
+         f'ms, plain {bp1:.3f} / {bp2:.3f} ms (kernel, plain, kernel, '
+         f'plain); its device operations alone (profiler) {_fmt_ms(alone)}, '
+         f'the sync\'s wait {_fmt_ms(out["sync_wait_ms"])}; per call '
+         f'{_fmt_ops(ops)}, plain {_fmt_ops(plain_ops)}; per device '
+         'operation ' + ', '.join(f'{k} {v:.4f} ms' for k, v in op_ms.items()))
+    return out
 
 
 def _fmt_ops(ops):
@@ -1304,9 +1366,7 @@ def _render_phase(dev, smi, rng, bworst):
          f'the PNG writes, on {smi}; launches {counts}')
 
     # the model's 24 views in one call, as the script renders them
-    model = os.path.join(DATA, '4e49873292196f02574b5684eaec43e9',
-                         'model.obj')
-    vm, fm, tm = tr.load_mesh(model, 2, dev)
+    vm, fm, tm = tr.load_mesh(MODEL, 2, dev)
     eyes24 = tr.view_eyes(24, DISTANCE, ELEVATION, dev)
     renderer = nt.Renderer()
     renderer.image_size = OUT_SIZE
@@ -1496,6 +1556,16 @@ def main():
                                     torch.as_tensor(fc, device=dev), tx))
         _compare_bins(f'random 64^2 nf 40 ts {ts}', s,
                       torch.as_tensor(fc, device=dev))
+    # the binning at the edges of its 128-face chunks, a NaN face in row 0
+    edge_rng = np.random.RandomState(args.seed + 1)
+    for nf_edge in (1, 31, 129, 300):
+        fc = edge_rng.uniform(-0.9, 0.9, (3, nf_edge, 3, 3)).astype(
+            np.float32)
+        fc[..., 2] = 1.0 + 0.3 * fc[..., 2]
+        fc[0, 0, 1, 0] = np.nan
+        _compare_bins(f'random 64^2 bs 3 nf {nf_edge}, a NaN face',
+                      RasterizeSettings(image_size=64, eps=1e-3),
+                      torch.as_tensor(fc, device=dev))
 
     vertices, faces = _teapot()
     nf2 = 2 * faces.shape[0]
@@ -1568,33 +1638,31 @@ def main():
     tile_pairs32 = _compare_bins(
         f'teapot {RASTER}^2 bs {BATCH} (main path shape)', s512, fc32)
 
-    def binning():
-        return forward_cuda.bin_setup(s512, fc32, tile)
-
-    def binning_plain():
-        return forward_cuda.bin_setup_plain(s512, fc32, tile)
-
-    b1 = _time_ms(binning, reps=20, warmup=3)
-    bp1 = _time_ms(binning_plain, reps=20, warmup=3)
-    b2 = _time_ms(binning, reps=20)
-    bp2 = _time_ms(binning_plain, reps=20)
     nt32 = -(-RASTER // tile)
     # faces read once; records, first, start, ids and order written once
     bin_bound = _bound(4 * fc32.numel() + 4 * BATCH * nf2 * (18 + 1)
                        + 4 * BATCH * nt32 * nt32 + 2 * 4 * tile_pairs32, 0)
-    bin_ops, plain_ops = _device_ops(binning), _device_ops(binning_plain)
-    binning_times = dict(ms=b1, plain_ms=bp1,
-                         alone_ms=_kernel_device_ms(binning, 10, BINNING_OPS),
-                         bound_ms=bin_bound[0], bound_by=bin_bound[1],
-                         pairs=tile_pairs32,
-                         device_ops=sum(bin_ops.values()),
-                         plain_device_ops=sum(plain_ops.values()))
-    _log(f'setup + binning at bs {BATCH}, {RASTER}^2, nf {nf2} on {smi}: '
-         f'bin_setup {b1:.3f} / {b2:.3f} ms, plain {bp1:.3f} / {bp2:.3f} ms '
-         f'(kernel, plain, kernel, plain); its device operations alone '
-         f'(profiler) {_fmt_ms(binning_times["alone_ms"])}; bound '
-         f'{bin_bound[0]:.4f} ms by {bin_bound[1]} ({tile_pairs32} pairs); '
-         f'per call {_fmt_ops(bin_ops)}, plain {_fmt_ops(plain_ops)}')
+    binning_times = _binning_times(
+        f'at bs {BATCH}, {RASTER}^2, nf {nf2}', s512, fc32, tile, smi)
+    binning_times.update(bound_ms=bin_bound[0], bound_by=bin_bound[1],
+                         pairs=tile_pairs32)
+    _log(f'setup + binning bound at bs {BATCH}: {bin_bound[0]:.4f} ms by '
+         f'{bin_bound[1]} ({tile_pairs32} pairs)')
+
+    # the real model's 24 views as misc/torch_render.py renders them (a
+    # face over 252 tiles, lists of up to 944 faces): lists equal, timed
+    tr = _load_script(os.path.join(ROOT, 'misc', 'torch_render.py'))
+    vm, fm, tm = tr.load_mesh(MODEL, 2, dev)
+    views = nt.Renderer()
+    views.image_size = OUT_SIZE
+    views.eye = tr.view_eyes(24, DISTANCE, ELEVATION, dev)
+    fc24, _ = views._lit_faces(vm.expand(24, -1, -1), fm.expand(24, -1, -1),
+                               tm.expand((24,) + tm.shape[1:]))
+    _compare_bins(f'model {RASTER}^2 24 views', s512, fc24)
+    binning_times['model_24_views'] = _binning_times(
+        f'of the model at 24 views, {RASTER}^2, nf {fc24.shape[1]}', s512,
+        fc24, tile, smi)
+    del vm, fm, tm, fc24
 
     # ---- 4. the forward-only path ----
     v = torch.as_tensor(np.tile(vertices[None], (BATCH, 1, 1)), device=dev)
@@ -2312,6 +2380,11 @@ def main():
                              reps=3),
             sum_ms=_time_ms(lambda: segments.segment_sum(rows_t, perm_t,
                                                          offsets_t), reps=3),
+            # the same rows by one index_add_ (uncovered pixels' rows go to
+            # the id past the last cell)
+            index_add_ms=_time_ms(lambda: torch.zeros(
+                (nseg_t + 1, 3), device=dev).index_add_(0, ids_t, rows_t),
+                reps=3),
             grad_ms=_time_ms(lambda: tex.grad_textures(s8, *maps_t, shape_t),
                              reps=3))
         del maps_t, ids_t, rows_t, perm_t, offsets_t
@@ -2322,7 +2395,8 @@ def main():
          + '; '.join(
              f'bs {b}: {t["rows"]} rows ({t["covered"]} covered), '
              f'sort_segments {t["sort_ms"]:.3f} ms, segment_sum '
-             f'{t["sum_ms"]:.3f} ms, grad_textures {t["grad_ms"]:.3f} ms'
+             f'{t["sum_ms"]:.3f} ms (index_add_ {t["index_add_ms"]:.3f} ms), '
+             f'grad_textures {t["grad_ms"]:.3f} ms'
              for b, t in sort_ms.items()) + f' on {smi}')
     del tex_maps, got, again, want, err
 
@@ -2366,22 +2440,32 @@ def main():
             return torch.zeros((nseg + nseg // 3 + 1, 3), device=dev
                                ).index_add_(0, ids, rows)
 
-        seg = dict(ms=_time_ms(kern, reps=20, warmup=2),
+        # a call against one index_add_ in turns, 5 rounds of 20 calls
+        # each: the medians (a call is host time, which spreads)
+        rounds = [(_time_ms(kern, reps=20, warmup=2),
+                   _time_ms(library_fn, reps=20, warmup=2))
+                  for _ in range(5)]
+        seg = dict(ms=float(np.median([k for k, _ in rounds])),
                    plain_ms=_time_ms(plain_fn, reps=5),
                    alone_ms=_kernel_device_ms(kern, 5, 'segment_sum_kernel'),
-                   library_ms=_time_ms(library_fn, reps=20, warmup=2))
+                   library_ms=float(np.median([x for _, x in rounds])),
+                   calls_won=sum(k <= x for k, x in rounds))
         used = int(offsets[-1])
         # rows read once through their permutation, offsets, sums written
         seg['bound_ms'], seg['bound_by'] = _bound(
             (4 * 3 + 8) * used + 8 * (nseg + 1) + 4 * 3 * nseg, 3 * used)
         _log(f'segment_sum {name}: {used} rows onto {nseg} segments, max abs '
              f'err {float(err.max()):.3g} ({SEGMENT_TOL} x column max), '
-             f'repeat runs bitwise equal; kernel {seg["ms"]:.3f} ms, alone '
+             f'repeat runs bitwise equal; a call {seg["ms"]:.3f} ms, alone '
              f'{_fmt_ms(seg["alone_ms"])}, plain {seg["plain_ms"]:.3f} ms, '
-             f'index_add_ {seg["library_ms"]:.3f} ms, bound '
+             f'index_add_ {seg["library_ms"]:.3f} ms (medians of 5 rounds '
+             f'in turns; the call at or below index_add_ in '
+             f'{seg["calls_won"]} of 5), bound '
              f'{seg["bound_ms"]:.4f} ms by {seg["bound_by"]} on {smi}')
         if name == 'vertices':
             seg_main = seg
+        else:
+            seg_ts8 = seg
         del rows, perm, offsets, got, again, want, err
     del seg_cases, flat
 
@@ -2475,27 +2559,37 @@ def main():
                         'neural_renderer_tpu/rasterize/backward_pallas.py:867',
                         bworst['face_reduce'], launches),
     }
-    _log(json.dumps({'segment_sum': {
-        'name': 'segment_sum', 'route': 'cuda',
-        'source': 'neural_renderer_torch/csrc/segment_sum.cu',
-        'replaces': 'XLA code, not a TPU kernel: neural_renderer_tpu/ops/'
-                    'vertices_to_faces.py:57-93 and neural_renderer_tpu/'
-                    'rasterize/texture.py:258-285',
-        'launches': launches['segment_sum'],
-        'launches_per_step': launches['segment_sum'] / len(eyes),
-        'max_abs_err': seg_worst, 'step_profile_ms': segment_step_ms,
-        'ts8_texture_scatter': sort_ms, **seg_main}}))
-    _log(json.dumps({'binning': {
-        'name': 'bin_faces', 'route': 'cuda',
-        'source': 'neural_renderer_torch/csrc/bin_faces.cu',
-        'replaces': 'XLA code, not a TPU kernel: neural_renderer_tpu/'
-                    'rasterize/forward_pallas.py:211-299 (_face_tile_ranges, '
-                    '_membership_prefix, _feature_table)',
-        'launches': launches['bin_faces'], 'max_abs_err': 0.0,
-        **binning_times}}))
+    sources.update({
+        'bin_faces': ('neural_renderer_torch/csrc/bin_faces.cu',
+                      'XLA code, not a TPU kernel: neural_renderer_tpu/'
+                      'rasterize/forward_pallas.py:211-299 '
+                      '(_face_tile_ranges, _membership_prefix, '
+                      '_feature_table)', 0.0, launches),
+        'segment_sum': ('neural_renderer_torch/csrc/segment_sum.cu',
+                        'XLA code, not a TPU kernel: neural_renderer_tpu/ops/'
+                        'vertices_to_faces.py:57-93 and neural_renderer_tpu/'
+                        'rasterize/texture.py:258-285', seg_worst, launches),
+    })
+    times['bin_faces'] = (binning_times['ms'], binning_times['plain_ms'])
+    bounds['bin_faces'] = (binning_times['bound_ms'],
+                           binning_times['bound_by'])
+    alone['bin_faces'] = binning_times['alone_ms']
+    library['bin_faces'] = None
+    extra['bin_faces'] = {k: binning_times[k] for k in (
+        'sync_wait_ms', 'op_ms', 'device_ops', 'plain_device_ops', 'pairs',
+        'model_24_views')}
+    times['segment_sum'] = (seg_main['ms'], seg_main['plain_ms'])
+    bounds['segment_sum'] = (seg_main['bound_ms'], seg_main['bound_by'])
+    # its device time per launch as the training step runs it (phase 7)
+    alone['segment_sum'] = segment_step_ms
+    library['segment_sum'] = seg_main['library_ms']
+    extra['segment_sum'] = dict(step_profile_ms=segment_step_ms,
+                                ts8_texture_scale=seg_ts8,
+                                ts8_texture_scatter=sort_ms)
     _log(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
-        'launches': counts[name], 'max_abs_err': err_k,
+        'launches': counts[name],
+        'launches_per_step': counts[name] / len(eyes), 'max_abs_err': err_k,
         'ms': times[name][0], 'plain_ms': times[name][1],
         'bound_ms': bounds[name][0], 'bound_by': bounds[name][1],
         'library_ms': library.get(name), 'kernel_alone_ms': alone[name],

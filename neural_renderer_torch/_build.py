@@ -17,12 +17,15 @@ edge test or a barycentric weight can flip a near-tie z test.  Fast math is
 never used: ``1/z`` and the depth divisions stay IEEE.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+
+import torch
 
 _CSRC = pathlib.Path(__file__).resolve().parent / 'csrc'
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent / '_build'
@@ -125,3 +128,17 @@ def raise_on_error(lib, rc, name):
     if rc != 0:
         raise RuntimeError(f'{name} kernel launch failed: '
                            + lib.nr_error_string(rc).decode())
+
+
+def current_device(index):
+    """The CUDA device context for a launch on device ``index``: none where
+    it is already the current device."""
+    if index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
+
+
+def raw_stream(index):
+    """The current stream of CUDA device ``index`` as the ``cudaStream_t``
+    a kernel's C interface takes, without making a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(index)

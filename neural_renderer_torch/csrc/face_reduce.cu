@@ -53,11 +53,14 @@
 #include <cub/block/block_radix_sort.cuh>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kTile = 16;          // the forward's tile edge (zbuffer.cuh)
 constexpr int kThreads = kTile * kTile;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxDevices = 64;
 constexpr int kPad = kThreads + 1; // words per staged channel: lanes that
                                    // read other channels of one pixel hit
                                    // other banks
@@ -225,12 +228,28 @@ int nr_face_reduce(const float* stack, const int* fim, const int* start,
   if (nseg == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   const int nt = (is + kTile - 1) / kTile;
-  // the staged channels beside the sort's static storage may pass 48 KB
+  // the staged channels beside the sort's static storage may pass 48 KB:
+  // raise the tile pass's limit to all the device allows, once per device
   const size_t smem = (size_t)C * kPad * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      face_reduce_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static std::atomic<int> raised[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev].load()) {
+    int optin = 0;
+    cudaFuncAttributes attr;
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncGetAttributes(&attr, face_reduce_tile_kernel);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(face_reduce_tile_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin - (int)attr.sharedSizeBytes);
+    if (err != cudaSuccess) return (int)err;
+    raised[dev].store(1);
+  }
   face_reduce_tile_kernel<<<dim3(nt * nt, bs), kThreads, smem, s>>>(
       stack, fim, start, ids, order, nt, is, C, c_base, ts, c_out, partial);
   err = cudaGetLastError();

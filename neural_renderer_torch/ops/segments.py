@@ -31,7 +31,7 @@ def _kernel():
     lib = _build.load('segment_sum')
     ptr = ctypes.c_void_p
     lib.nr_segment_sum.argtypes = [ptr, ptr, ptr, ctypes.c_longlong,
-                                   ctypes.c_int, ptr, ptr]
+                                   ctypes.c_longlong, ctypes.c_int, ptr, ptr]
     lib.nr_segment_sum.restype = ctypes.c_int
     lib.nr_error_string.argtypes = [ctypes.c_int]
     lib.nr_error_string.restype = ctypes.c_char_p
@@ -43,28 +43,13 @@ def sort_segments(ids, nseg):
     int64 orders the flattened ids ascending, stable; ``offsets`` int64
     ``[nseg + 1]`` delimits segments ``0 .. nseg - 1`` in that order.  Ids
     at or beyond ``nseg`` fall after ``offsets[nseg]``, so their rows are
-    never summed."""
+    never summed.  Both are contiguous and on ``ids``' device, as
+    ``segment_sum`` takes them without checking again."""
     ids = ids.reshape(-1)
     keys, perm = torch.sort(ids, stable=True)
     offsets = torch.searchsorted(
         keys, torch.arange(nseg + 1, dtype=keys.dtype, device=keys.device))
     return perm, offsets
-
-
-def _check(rows, perm, offsets):
-    if rows.dtype != torch.float32 or rows.ndim != 2:
-        raise ValueError('rows must be float32 [n, C]; got '
-                         f'{rows.dtype} {tuple(rows.shape)}')
-    for name, t, n in (('perm', perm, rows.shape[0]),
-                       ('offsets', offsets, None)):
-        if (t.dtype != torch.int64 or t.ndim != 1
-                or (n is not None and t.shape[0] != n)
-                or t.device != rows.device):
-            raise ValueError(f'{name} must be int64 [{n or "nseg + 1"}] on '
-                             f'{rows.device}; got {t.dtype} '
-                             f'{tuple(t.shape)} on {t.device}')
-    if offsets.shape[0] < 1:
-        raise ValueError('offsets needs nseg + 1 >= 1 entries')
 
 
 def segment_sum_plain(rows, perm, offsets):
@@ -83,22 +68,29 @@ def segment_sum_plain(rows, perm, offsets):
 def segment_sum(rows, perm, offsets):
     """``[nseg, C]`` sums of ``rows [n, C]`` float32 per segment: segment
     ``s`` sums ``rows[perm[i]]`` for ``offsets[s] <= i < offsets[s + 1]``,
-    in ascending ``i`` (``sort_segments``).  Deterministic: every run gives
-    the same bits."""
-    _check(rows, perm, offsets)
-    if not on_card(rows):
+    in ascending ``i``.  ``perm`` and ``offsets`` come from
+    ``sort_segments`` of the rows' ids, on the rows' device.
+    Deterministic: every run gives the same bits."""
+    if (rows.dtype != torch.float32 or rows.dim() != 2
+            or rows.shape[0] != perm.shape[0]
+            or perm.get_device() != rows.get_device()):
+        raise ValueError(
+            f'rows must be float32 [n, C] on the device of perm [n] '
+            f'({perm.shape[0]} on {perm.device}); got {rows.dtype} '
+            f'{tuple(rows.shape)} on {rows.device}')
+    if not rows.is_cuda and not on_card(rows):
         return segment_sum_plain(rows, perm, offsets)
+    if not rows.is_contiguous():
+        rows = rows.contiguous()
+    n, C = rows.shape
     nseg = offsets.shape[0] - 1
-    rows = rows.contiguous()
-    perm, offsets = perm.contiguous(), offsets.contiguous()
-    out = torch.empty((nseg, rows.shape[1]), dtype=torch.float32,
-                      device=rows.device)
+    out = rows.new_empty((nseg, C))
     lib = _kernel()
-    with torch.cuda.device(rows.device):
+    index = rows.get_device()
+    with _build.current_device(index):
         rc = lib.nr_segment_sum(
-            rows.data_ptr(), perm.data_ptr(), offsets.data_ptr(), nseg,
-            rows.shape[1], out.data_ptr(),
-            torch.cuda.current_stream(rows.device).cuda_stream)
+            rows.data_ptr(), perm.data_ptr(), offsets.data_ptr(), n, nseg, C,
+            out.data_ptr(), _build.raw_stream(index))
     _build.raise_on_error(lib, rc, 'segment_sum')
     LAUNCHES['segment_sum'] += 1
     return out

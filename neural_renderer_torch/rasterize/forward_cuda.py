@@ -31,6 +31,10 @@ tensor ``bin_setup_plain``, built from
     face-major order (``order``, ``first``) for the backward's per-face
     reduction.
 
+``coverage_masks`` and ``lists_from_masks`` are the plain versions of the
+kernels' own steps (a 128-bit coverage mask per (tile, 128-face chunk),
+one scan, O(1) ranks): the tests hold them to ``bin_faces``.
+
 The kernels (``csrc/forward_shaded.cu``, ``csrc/forward_index.cu``) render
 one tile per block and loop over any list length, so there is no capacity
 limit and nothing to tune.  Each wrapper sends a CUDA tensor to its kernel
@@ -108,9 +112,9 @@ def _binning():
     lib.nr_bin_scan_bytes.argtypes = [i32] * 4
     lib.nr_bin_scan_bytes.restype = i64
     lib.nr_bin_count.argtypes = ([ptr] + [i32] * 4 + [ptr] * 8 + [i64]
-                                 + [ptr] * 3)
+                                 + [ptr])
     lib.nr_bin_count.restype = i32
-    lib.nr_bin_fill.argtypes = [ptr] * 3 + [i32] * 4 + [ptr] * 3
+    lib.nr_bin_fill.argtypes = [ptr] * 3 + [i32] * 5 + [ptr] * 5
     lib.nr_bin_fill.restype = i32
     lib.nr_error_string.argtypes = [i32]
     lib.nr_error_string.restype = ctypes.c_char_p
@@ -179,6 +183,31 @@ def _face_tile_ranges(settings, faces, tile):
     return front, ty0, ty1, tx0, tx1
 
 
+def _pairs(settings, faces, tile):
+    """The (tile, face) pairs of ``faces`` at ``tile``, face-major (each
+    face's tiles in row-major order): (n ``[bs, nf]`` pairs per face, first
+    ``[bs * nf + 1]`` each face's first pair, fid, ty, tx ``[pairs]`` each
+    pair's face of ``[bs * nf]`` and tile), int64."""
+    bs, nf = faces.shape[:2]
+    dev = faces.device
+    front, ty0, ty1, tx0, tx1 = _face_tile_ranges(settings, faces, tile)
+    ny = (ty1 - ty0 + 1).clamp(min=0)
+    nx = (tx1 - tx0 + 1).clamp(min=0)
+    n = torch.where(front, ny * nx, torch.zeros_like(ny))
+    total = int(n.sum())
+    if total >= 2 ** 31:
+        raise ValueError(f'{total} (tile, face) pairs overflow int32 offsets')
+    first = torch.zeros(bs * nf + 1, dtype=torch.int64, device=dev)
+    first[1:] = torch.cumsum(n.reshape(-1), 0)
+    fid = torch.repeat_interleave(torch.arange(bs * nf, device=dev),
+                                  n.reshape(-1), output_size=total)
+    j = torch.arange(total, device=dev) - first[fid]
+    nxf = nx.reshape(-1)[fid]
+    ty = ty0.reshape(-1)[fid] + torch.div(j, nxf, rounding_mode='floor')
+    tx = tx0.reshape(-1)[fid] + j % nxf
+    return n, first, fid, ty, tx
+
+
 def bin_faces(settings, faces, tile):
     """CSR tile lists: (start [bs*nt*nt + 1], ids [pairs], order [pairs],
     first [bs*nf + 1]), all int32.
@@ -193,30 +222,106 @@ def bin_faces(settings, faces, tile):
     """
     bs, nf = faces.shape[:2]
     nt = -(-settings.image_size // tile)
-    dev = faces.device
-    front, ty0, ty1, tx0, tx1 = _face_tile_ranges(settings, faces, tile)
-    ny = (ty1 - ty0 + 1).clamp(min=0)
-    nx = (tx1 - tx0 + 1).clamp(min=0)
-    n = torch.where(front, ny * nx, torch.zeros_like(ny)).reshape(-1)
-    total = int(n.sum())
-    if total >= 2 ** 31:
-        raise ValueError(f'{total} (tile, face) pairs overflow int32 offsets')
-    # one entry per (face, covered tile), faces ascending
-    first = torch.zeros(bs * nf + 1, dtype=torch.int64, device=dev)
-    first[1:] = torch.cumsum(n, 0)
-    fid = torch.repeat_interleave(torch.arange(bs * nf, device=dev), n,
-                                  output_size=total)
-    j = torch.arange(total, device=dev) - first[fid]
-    nxf = nx.reshape(-1)[fid]
-    ty = ty0.reshape(-1)[fid] + torch.div(j, nxf, rounding_mode='floor')
-    tx = tx0.reshape(-1)[fid] + j % nxf
+    _, first, fid, ty, tx = _pairs(settings, faces, tile)
     key = ((fid // nf) * nt + ty) * nt + tx
     # a stable sort keeps each tile's faces in ascending id order
     order = torch.sort(key, stable=True).indices
     ids = (fid[order] % nf).to(torch.int32)
-    start = torch.zeros(bs * nt * nt + 1, dtype=torch.int32, device=dev)
+    start = torch.zeros(bs * nt * nt + 1, dtype=torch.int32,
+                        device=faces.device)
     start[1:] = torch.cumsum(torch.bincount(key, minlength=bs * nt * nt), 0)
     return start, ids, order.to(torch.int32), first.to(torch.int32)
+
+
+# faces per chunk of csrc/bin_faces.cu: one block, one 128-bit coverage
+# mask per (tile, chunk) cell
+BIN_CHUNK = 128
+
+
+def _popcount(x):
+    """Set bits of each int64 entry of ``x`` below 2^32."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def coverage_masks(settings, faces, tile):
+    """The plain version of the count pass of ``csrc/bin_faces.cu``: (count
+    ``[bs, nf]`` pairs per face, box ``[bs, nch, 4]`` each chunk of
+    ``BIN_CHUNK`` faces' tile bbox ``ty0 ty1 tx0 tx1`` over its faces with
+    pairs, ``0 -1 0 -1`` where it has none, mask ``[bs, T, nch, 4]`` the
+    coverage masks, bit ``l`` of word ``w`` for face ``BIN_CHUNK * c + 32 w
+    + l`` of chunk ``c``), int64, ``T = nt * nt``.  Every bit lies inside
+    its chunk's box."""
+    bs, nf = faces.shape[:2]
+    nt = -(-settings.image_size // tile)
+    nch = -(-nf // BIN_CHUNK)
+    dev = faces.device
+    n, _, fid, ty, tx = _pairs(settings, faces, tile)
+    _, ty0, ty1, tx0, tx1 = _face_tile_ranges(settings, faces, tile)
+    live = n > 0
+    pad = nch * BIN_CHUNK - nf
+
+    def chunked(v, empty, reduce):
+        v = torch.where(live, v, torch.full_like(v, empty))
+        v = torch.nn.functional.pad(v, (0, pad), value=empty)
+        return reduce(v.reshape(bs, nch, BIN_CHUNK), -1)
+
+    big = 2 ** 31
+    box = torch.stack([chunked(ty0, big, torch.amin),
+                       chunked(ty1, -big, torch.amax),
+                       chunked(tx0, big, torch.amin),
+                       chunked(tx1, -big, torch.amax)], -1)
+    none = (box[..., 0] > box[..., 1])[..., None]
+    box = torch.where(none, torch.tensor([0, -1, 0, -1], device=dev), box)
+    b, f = fid // nf, fid % nf
+    word = (((b * nt + ty) * nt + tx) * nch + f // BIN_CHUNK) * 4 \
+        + (f % BIN_CHUNK) // 32
+    mask = torch.zeros(bs * nt * nt * nch * 4, dtype=torch.int64, device=dev)
+    # each (face, tile) pair sets its bit once, so the sum is the OR
+    mask.index_add_(0, word, torch.ones_like(word) << (f % 32))
+    return n, box, mask.reshape(bs, nt * nt, nch, 4)
+
+
+def lists_from_masks(settings, faces, tile, count, box, mask):
+    """The plain version of the scan and fill passes of ``csrc/bin_faces.cu``:
+    ``bin_faces``' (start, ids, order, first) from ``coverage_masks``.  The
+    scan runs over the faces' pair counts, then each cell's popcount (0
+    outside its chunk's box, where ``mask`` is never read); a pair's slot is
+    its cell's scan entry less the pair total, plus the popcount of its
+    cell's bits below its face's."""
+    bs, nf = faces.shape[:2]
+    nt = -(-settings.image_size // tile)
+    nch = box.shape[1]
+    nseg = bs * nf
+    _, _, fid, ty, tx = _pairs(settings, faces, tile)
+    t = torch.arange(nt * nt, device=faces.device)
+    tyy, txx = (t // nt)[None, :, None], (t % nt)[None, :, None]
+    inside = ((tyy >= box[:, None, :, 0]) & (tyy <= box[:, None, :, 1])
+              & (txx >= box[:, None, :, 2]) & (txx <= box[:, None, :, 3]))
+    cells = torch.where(inside, _popcount(mask).sum(-1), 0)
+    counts = torch.cat([count.reshape(-1), cells.reshape(-1)])
+    scan = torch.cumsum(counts, 0) - counts
+    total = int(scan[nseg])
+    first = scan[:nseg + 1]
+    start = torch.cat([scan[nseg::nch][:bs * nt * nt] - total,
+                       scan.new_tensor([total])])
+    b, f = fid // nf, fid % nf
+    cell = ((b * nt + ty) * nt + tx) * nch + f // BIN_CHUNK
+    words = mask.reshape(-1, 4)[cell]
+    w, bit = (f % BIN_CHUNK) // 32, f % 32
+    below = torch.arange(4, device=faces.device)[None, :] < w[:, None]
+    rank = (_popcount(words.gather(1, w[:, None])[:, 0]
+                      & ((torch.ones_like(bit) << bit) - 1))
+            + torch.where(below, _popcount(words), 0).sum(-1))
+    pos = scan[nseg + cell] - total + rank
+    ids = torch.empty_like(f, dtype=torch.int32)
+    order = torch.empty_like(f, dtype=torch.int32)
+    ids[pos] = f.to(torch.int32)
+    order[pos] = torch.arange(f.shape[0], dtype=torch.int32,
+                              device=faces.device)
+    return (start.to(torch.int32), ids, order, first.to(torch.int32))
 
 
 def bin_setup(settings, faces, tile, records=('rec',)):
@@ -237,6 +342,7 @@ def bin_setup(settings, faces, tile, records=('rec',)):
         return bin_setup_plain(settings, faces, tile, records)
     faces = faces.contiguous()
     bs, nf = faces.shape[:2]
+    nseg = bs * nf
     is_ = settings.image_size
     nt = -(-is_ // tile)
     lib = _binning()
@@ -250,31 +356,30 @@ def bin_setup(settings, faces, tile, records=('rec',)):
         if name in records:
             out[name] = empty(bs, nf, width, dtype=torch.float32)
     cells, temp_bytes = _bin_sizes(bs, nf, is_, tile)
-    rect = empty(bs * nf, 4)
-    count = empty(bs * nf + 1, dtype=torch.int64)
-    first64 = empty(bs * nf + 1, dtype=torch.int64)
-    cnt, offs = empty(cells), empty(cells)
+    rect, count = empty(nseg, 4), empty(max(nseg, 1))
+    box = empty(cells // (nt * nt) if cells else 0, 4)
+    mask = empty(cells, 4)
+    scan = empty(max(nseg + cells, 1), dtype=torch.int64)
     temp = empty(max(temp_bytes, 1), dtype=torch.uint8)
-    out['first'] = empty(bs * nf + 1)
+    out['first'] = empty(nseg + 1)
     out['start'] = empty(bs * nt * nt + 1)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.nr_bin_count(
             faces.data_ptr(), bs, nf, is_, tile, _ptr(out.get('rec')),
             _ptr(out.get('irec')), rect.data_ptr(), count.data_ptr(),
-            first64.data_ptr(), cnt.data_ptr(), offs.data_ptr(),
-            temp.data_ptr(), temp_bytes, out['first'].data_ptr(),
-            out['start'].data_ptr(), stream)
+            box.data_ptr(), mask.data_ptr(), scan.data_ptr(),
+            temp.data_ptr(), temp_bytes, stream)
         _build.raise_on_error(lib, rc, 'bin_faces count')
-        total = int(first64[-1])            # the forward's one host sync
+        total = int(scan[nseg])             # the forward's one host sync
         if total >= 2 ** 31:
             raise ValueError(
                 f'{total} (tile, face) pairs overflow int32 offsets')
         out['ids'], out['order'] = empty(total), empty(total)
-        rc = lib.nr_bin_fill(rect.data_ptr(), out['first'].data_ptr(),
-                             offs.data_ptr(), bs, nf, is_, tile,
-                             out['ids'].data_ptr(), out['order'].data_ptr(),
-                             stream)
+        rc = lib.nr_bin_fill(
+            rect.data_ptr(), scan.data_ptr(), mask.data_ptr(), bs, nf, is_,
+            tile, total, out['ids'].data_ptr(), out['order'].data_ptr(),
+            out['first'].data_ptr(), out['start'].data_ptr(), stream)
         _build.raise_on_error(lib, rc, 'bin_faces fill')
     LAUNCHES['bin_faces'] += 1
     return out
@@ -282,14 +387,15 @@ def bin_setup(settings, faces, tile, records=('rec',)):
 
 @functools.cache
 def _bin_sizes(bs, nf, is_, tile):
-    """(tile, chunk) counters and CUB scratch bytes of ``nr_bin_count``."""
+    """(tile, chunk) cells and CUB scratch bytes of ``nr_bin_count``."""
     lib = _binning()
     cells = lib.nr_bin_cells(bs, nf, is_, tile)
     temp_bytes = lib.nr_bin_scan_bytes(bs, nf, is_, tile)
-    if temp_bytes < 0:
-        raise RuntimeError(f'bin_faces: no scan for {cells} (tile, chunk) '
-                           'counters (more than int32 offsets hold, or CUB '
-                           'failed)')
+    if cells < 0 or temp_bytes < 0:
+        raise RuntimeError(f'bin_faces: no scan for {bs} x {nf} faces at '
+                           f'{is_}^2 in {tile}-pixel tiles (more faces and '
+                           '(tile, chunk) cells than int32 offsets hold, or '
+                           'CUB failed)')
     return cells, temp_bytes
 
 

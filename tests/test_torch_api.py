@@ -108,6 +108,48 @@ def test_segment_sum_plain_equals_index_add(n, nseg, C):
     assert int(offsets[-1]) == int((ids < nseg).sum())
 
 
+def _fold(rows, ids, nseg):
+    """Each segment's rows added in row order, one float32 add at a time."""
+    out = np.zeros((nseg, rows.shape[1]), np.float32)
+    for i in range(rows.shape[0]):
+        if ids[i] < nseg:
+            out[ids[i]] = out[ids[i]] + rows[i]
+    return out
+
+
+@pytest.mark.parametrize('case', ['thousands of rows', 'empty segments',
+                                  'ids at and past nseg', 'strided rows'])
+def test_segment_sum_adds_rows_in_order(case):
+    """Bit for bit the rows of each segment added in ascending row order:
+    one segment of 3000 rows among short ones, most segments empty, ids at
+    and past ``nseg`` never read, a rows tensor that is not contiguous."""
+    rng = np.random.RandomState(len(case))
+    nseg, n, C = 40, 600, 3
+    ids = rng.randint(0, nseg, n)
+    if case == 'thousands of rows':
+        ids = np.concatenate([ids, np.full(3000, 17)])
+        rng.shuffle(ids)
+    elif case == 'empty segments':
+        nseg = 5000
+    elif case == 'ids at and past nseg':
+        ids[::3] = nseg + rng.randint(0, 3, ids[::3].shape)
+    rows = rng.normal(size=(ids.shape[0], C)).astype(np.float32)
+    rows_t = torch.tensor(rows)
+    if case == 'strided rows':
+        wide = torch.tensor(rng.normal(size=(ids.shape[0], 2 * C)).astype(
+            np.float32))
+        rows_t = wide[:, ::2]
+        rows = rows_t.numpy().copy()
+        assert not rows_t.is_contiguous()
+    perm, offsets = segments.sort_segments(torch.tensor(ids), nseg)
+    got = segments.segment_sum(rows_t, perm, offsets)
+    want = _fold(rows, ids, nseg)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    if case == 'empty segments':
+        assert int((offsets[1:] == offsets[:-1]).sum()) > 4000
+
+
 def test_segment_sum_checks_inputs():
     rows = torch.zeros(4, 3)
     perm, offsets = segments.sort_segments(torch.tensor([0, 1, 1, 0]), 2)

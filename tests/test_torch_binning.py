@@ -22,7 +22,19 @@ Scenes: random 64^2 (bs 2, nf 40), the same with coincident duplicated and
 with degenerate faces, and the teapot batch of tests/utils.py (three
 all-zero meshes) at 64^2 and 128^2.  Tolerance: bit-equal records, equal
 lists.
+
+The design of ``csrc/bin_faces.cu`` through its plain versions
+(``coverage_masks``: per-face pair counts, each 128-face chunk's tile box
+and a 128-bit coverage mask per (tile, chunk); ``lists_from_masks``: the
+scan and the O(1) ranks) gives ``bin_faces``' lists exactly, its masks hold
+every chunk's faces of each tile and no bit outside the chunk's box, and
+bits outside the box are never read: on the main path's teapot batch (bs
+32 at 512^2), the ShapeNet model's 24 views at 512^2 (a face over 252
+tiles, lists of 944), a NaN face, and nf 1, 31, 129 and 4928 (chunk
+edges).
 """
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -237,3 +249,93 @@ def test_bin_setup_on_cpu_runs_plain_and_launches_nothing():
     assert 'irec' not in forward_cuda.bin_setup(s, fc, 16)
     with pytest.raises(ValueError, match='unknown records'):
         forward_cuda.bin_setup(s, fc, 16, records=('zbuf',))
+
+
+def _views(vertices, faces, eyes, size):
+    """NDC faces (fill_back) of a mesh seen from each of ``eyes``."""
+    r = nt.Renderer()
+    r.image_size = size
+    r.eye = np.asarray(eyes, np.float32)
+    n = len(eyes)
+    tex = np.ones((faces.shape[0], 1, 1, 1, 3), np.float32)
+    v, f, t = nt.arrays_from_numpy(vertices, faces, tex, device='cpu')
+    fc, _ = r._lit_faces(v[None].expand(n, -1, -1), f[None].expand(n, -1, -1),
+                         t[None].expand((n,) + t.shape))
+    return fc
+
+
+def _mask_scene(name):
+    """(NDC faces, raster size) of a scene for the coverage masks."""
+    if name in ('teapot bs 32', 'nf 4928'):
+        vertices, faces = nt.load_obj(os.path.join(utils.DATA_DIR,
+                                                   'teapot.obj'))
+        if name == 'nf 4928':
+            return _views(vertices, faces, [[1.0, 1.0, -2.7]], 256), 256
+        eyes = [nt.get_points_from_angles(2.732, 30.0, float(a))
+                for a in range(0, 360, 45) for _ in range(4)]
+        return _views(vertices, faces, eyes, 512), 512
+    if name == 'model 24 views':
+        vertices, faces = nt.load_obj(os.path.join(
+            utils.DATA_DIR, '4e49873292196f02574b5684eaec43e9', 'model.obj'))
+        az = np.linspace(0, 360, 24, endpoint=False).astype(np.float32)
+        eyes = nt.get_points_from_angles(
+            torch.full((24,), 2.732), torch.full((24,), 30.0),
+            torch.as_tensor(az))
+        return _views(vertices, faces, eyes, 512), 512
+    nf = 40 if name == 'nan face' else int(name.split()[1])
+    rng = np.random.RandomState(nf)
+    fc = rng.uniform(-0.9, 0.9, (2, nf, 3, 3)).astype(np.float32)
+    fc[..., 2] = 1.0 + 0.3 * fc[..., 2]
+    if name == 'nan face':
+        fc[0, 5, 1, 0] = np.nan
+        fc[1, 0, 2, 1] = np.nan
+    return torch.as_tensor(fc), 64
+
+
+@pytest.mark.parametrize('scene', ['teapot bs 32', 'model 24 views',
+                                   'nan face', 'nf 1', 'nf 31', 'nf 129',
+                                   'nf 4928'])
+def test_coverage_masks_give_bin_faces(scene):
+    fc, size = _mask_scene(scene)
+    bs, nf = fc.shape[:2]
+    s = TSet(image_size=size)
+    tile = 16
+    nt_ = -(-size // tile)
+    nch = -(-nf // forward_cuda.BIN_CHUNK)
+    count, box, mask = forward_cuda.coverage_masks(s, fc, tile)
+    want = forward_cuda.bin_faces(s, fc, tile)
+    assert count.shape == (bs, nf) and box.shape == (bs, nch, 4)
+    assert mask.shape == (bs, nt_ * nt_, nch, 4)
+    np.testing.assert_array_equal(count.reshape(-1).numpy(),
+                                  np.diff(want[3].numpy()))
+    # each (tile, chunk) cell's bits are its tile list's faces of the chunk
+    start, ids = want[0].long(), want[1].long()
+    tile_of = torch.repeat_interleave(torch.arange(bs * nt_ * nt_),
+                                      start[1:] - start[:-1])
+    cells = torch.bincount(tile_of * nch + ids // forward_cuda.BIN_CHUNK,
+                           minlength=bs * nt_ * nt_ * nch)
+    popc = forward_cuda._popcount(mask).sum(-1)
+    assert torch.equal(popc.reshape(-1), cells)
+    word = ((tile_of * nch + ids // forward_cuda.BIN_CHUNK) * 4
+            + ids % forward_cuda.BIN_CHUNK // 32)
+    assert bool(((mask.reshape(-1)[word] >> (ids % 32)) & 1).all())
+    # no bit outside a chunk's box, and what lies there is never read
+    t = torch.arange(nt_ * nt_)
+    ty, tx = (t // nt_)[None, :, None], (t % nt_)[None, :, None]
+    inside = ((ty >= box[:, None, :, 0]) & (ty <= box[:, None, :, 1])
+              & (tx >= box[:, None, :, 2]) & (tx <= box[:, None, :, 3]))
+    assert not bool((mask != 0).any(-1)[~inside].any())
+    noise = torch.as_tensor(np.random.RandomState(1).randint(
+        0, 2 ** 32, mask.shape, dtype=np.int64))
+    noisy = torch.where(inside[..., None], mask, noise)
+    for got in (forward_cuda.lists_from_masks(s, fc, tile, count, box, mask),
+                forward_cuda.lists_from_masks(s, fc, tile, count, box,
+                                              noisy)):
+        for g, w, what in zip(got, want, ('start', 'ids', 'order', 'first')):
+            assert g.dtype == torch.int32, what
+            assert torch.equal(g, w), what
+    lengths = start[1:] - start[:-1]
+    if scene == 'model 24 views':
+        assert int(lengths.max()) == 944 and int(count.max()) == 252
+    if scene == 'nan face':
+        assert int(count[0, 5]) == 0 and int(count[1, 0]) == 0
