@@ -133,16 +133,46 @@ Phases (any failure exits non-zero; progress goes to stdout):
      phase 6's bands (random and ``sum(image)`` output gradients), every
      training kernel launched, two steps bitwise equal.  ``tune`` on the
      model over the 8 bench azimuths, and the index kernel against its
-     plain version on the 24 views.
+     plain version on the 24 views;
+ 20. the reference timing protocol: ``misc/torch_measure_time.py`` at its
+     defaults (the teapot at batch 1, 256^2 AA, ts 2, 24 azimuths, the
+     first sample dropped), its four means in ms, its launches; one
+     silhouette and one textured forward + backward call profiled over the
+     24 azimuths (device ms, idle share, device operations, launches per
+     call); at azimuths 0 and 45 the card's images (phase 3's tolerances)
+     and gradients (1e-4 x max |grad|, phase 6's band) against the same
+     functions on the CPU; the three backward kernels against their plain
+     versions on the protocol's scenes at azimuth 45 (bs 1, 512^2,
+     silhouettes and textured, ``sum(image)`` and random output
+     gradients; phase 6's rules) and the segmented sum on its vertex
+     scatter (phase 14's);
+ 21. BASELINE config 5: ``misc/torch_multiview.py`` at its defaults (64
+     views of the teapot at 512^2 AA through ``render_rgbad``, ``tune``
+     over 8 eyes, one warm-up and 4 timed calls over a one-rank gloo
+     group): ms per batch, images/s, the peak of ``max_memory_allocated``,
+     the index kernel launched 8 times by ``tune``; one call profiled
+     (device ms, idle share, device operations, its largest operations,
+     its own memory peak); the script's output bit-equal to
+     ``render_rgbad`` in one call and in 8 calls of 8 views; the forward
+     maps of all 64 views (a 1024^2 raster) against the plain version
+     (phase 3's rule), both timed; the index kernel against its plain
+     version on each of the 8 scenes ``tune`` gives it (bs 64, 1024^2,
+     phase 11's rule), timed; the binning at this size against its plain
+     version, timed, with its (tile, chunk) cells and the sync's wait.
+
+Every profiler window is padded with idle host time at both ends
+(``_profile``); a window that caught none of a kernel's launches is logged
+and profiled again (``_kernel_device_ms``).
 
 The last stdout line is the JSON device record.  The line before it lists
 seven kernels: the five TPU kernels' counterparts, the setup and binning
 (``bin_faces``) and the segmented sum (``segment_sum``), the last two not TPU
 kernels (the JAX package does both in XLA).  Each has its launches on its
 path (phase 7 for the training kernels, phase 11 for the index kernel) and
-per step, on each example's run (phase 17) and on phase 19's runs (the
-dataset renderer, the model's training step and its ``tune``), its worst
-error against the plain version (the out-sweep's over phases 6 and 13),
+per step, on each example's run (phase 17), on phase 19's runs (the
+dataset renderer, the model's training step and its ``tune``) and on the
+runs of phases 20 and 21 (the timing protocol and config 5), its worst
+error against the plain version (over every phase that compares it),
 its time and the plain version's, its bound (the larger of the bytes it
 must move over the card's memory rate and its operations over the f32 rate,
 from this run's inputs) and the library call's time where PyTorch has one:
@@ -152,7 +182,8 @@ one ``index_add_`` from the kernel's own inputs; for the segmented sum one
 also carry the other timings of phase 6, the binning's those of phase 3
 (per device operation, the sync's wait, the model's 24 views), the
 segmented sum's its device time per step from phase 7's profile and phase
-14's numbers at the ts 8 texture scale.
+14's numbers at the ts 8 texture scale; the segmented sum's time alone is
+phase 14's, at the main path's vertex scatter.
 """
 
 import argparse
@@ -177,6 +208,7 @@ import torch.multiprocessing as mp
 import neural_renderer_torch as nt
 from neural_renderer_torch import _build, parallel
 from neural_renderer_torch.io.image import imread
+from neural_renderer_torch.ops.vertices_to_faces import vertices_to_faces
 from neural_renderer_torch.ops import segments
 from neural_renderer_torch.rasterize import backward as bwd
 from neural_renderer_torch.rasterize import api, backward_cuda, core
@@ -231,6 +263,10 @@ FINGERPRINT_TOL = 1e-3
 # the segmented sum against its plain version (index_add_): another
 # summation order, held to 1e-6 x the column's max |value|
 SEGMENT_TOL = 1e-6
+# idle host time at each end of a profiler window (``_profile``), and the
+# windows ``_kernel_device_ms`` tries before it reports "not measured"
+PROFILE_PAD_S = 0.05
+PROFILE_TRIES = 5
 # a long line's crossing list forced into rounds at 512^2
 FORCED_CAPS = (5, 64)
 # the long-line phase's output size (AA doubles the raster)
@@ -483,33 +519,58 @@ def _time_ms(fn, reps, warmup=1):
     return start.elapsed_time(stop) / reps
 
 
+@contextlib.contextmanager
+def _profile():
+    """torch.profiler over the host and the card, its window padded with
+    ``PROFILE_PAD_S`` of idle host time at each end (the card synchronized
+    before the first pad and the second).  The card's timestamps stray from
+    the host's by milliseconds, and the profiler drops the device events
+    that fall outside its window: ``misc/torch_profile_window.py`` on an
+    H100 stamped kernels from 4.5 ms before to 1.5 ms after their launch,
+    and of 280 windows of 5 short kernels, 10 unpadded ones lost launches
+    and no padded one."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
 def _kernel_device_ms(fn, reps, kernel_name):
     """Device time per call of the CUDA kernels whose name contains
     ``kernel_name`` (a substring, or a tuple of them; summed over the
     kernels one call launches), from torch.profiler's device events: each
     kernel's mean duration over the launches the profiler caught, which
-    need not be all ``reps`` of them, times its launches per call; None
-    where the profiler reports no device time."""
+    need not be all ``reps`` of them, times its launches per call.  A
+    padded window can still come back with none of them (3 of 11 in one
+    run of this script on an H100), so an empty window is logged and
+    profiled again, up to ``PROFILE_TRIES`` windows; None where none caught
+    any."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     patterns = ((kernel_name,) if isinstance(kernel_name, str)
                 else kernel_name)
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by = {}                                     # name: [us, events]
-    for ev in prof.events():
-        if (ev.device_type == DeviceType.CUDA
-                and any(p in ev.name for p in patterns)):
-            entry = by.setdefault(ev.name, [0.0, 0])
-            entry[0] += ev.time_range.elapsed_us()
-            entry[1] += 1
-    total = sum(us / n * max(1, round(n / reps)) for us, n in by.values())
-    return total / 1000.0 if total > 0 else None
+    for tries in range(1, PROFILE_TRIES + 1):
+        with _profile() as prof:
+            for _ in range(reps):
+                fn()
+        by = {}                                 # name: [us, events]
+        for ev in prof.events():
+            if (ev.device_type == DeviceType.CUDA
+                    and any(p in ev.name for p in patterns)):
+                entry = by.setdefault(ev.name, [0.0, 0])
+                entry[0] += ev.time_range.elapsed_us()
+                entry[1] += 1
+        total = sum(us / n * max(1, round(n / reps))
+                    for us, n in by.values())
+        if total > 0:
+            return total / 1000.0
+        _log(f'profiler window {tries} of {PROFILE_TRIES} caught no launch '
+             f'of {patterns}')
+    return None
 
 
 # kernels whose device time the training-step profile reports, by the
@@ -526,10 +587,7 @@ def _step_profile(step, eyes):
     step}; {'kernels', 'copies', 'memsets': device operations per step}),
     or None where the profiler reports no device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profile() as prof:
         t0 = time.perf_counter()
         for eye in eyes:
             step(eye)
@@ -573,14 +631,10 @@ def _op_counts(prof, n):
 def _device_ops(fn, reps=5):
     """Device operations per call of ``fn``, from torch.profiler (which
     may drop an event now and then)."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profile() as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
     return _op_counts(prof, reps)
 
 
@@ -597,14 +651,10 @@ def _op_times(fn, reps=10, name=_op_name):
     one more, from torch.profiler; operations go by ``name`` of their
     profiler names (by default cut to the function's own name)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profile() as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
     by = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
@@ -698,14 +748,21 @@ def _bwd_scene(settings, faces, textures, rng, dev):
     return maps, grads
 
 
-def _sum_image_grads(bs, is_, dev):
+def _sum_image_grads(bs, is_, dev, key='rgb'):
     """The output gradients of ``sum(image)`` as autograd hands them to
-    the rasterizer's rgb ``[bs, is, is, 3]``: through the vertical flip and
-    the 2x2 mean pool of ``api._render_pass``."""
-    x = torch.zeros((bs, is_, is_, 3), device=dev, requires_grad=True)
-    image = api._avg_pool_2x2(torch.flip(x.permute(0, 3, 1, 2), dims=[2]))
-    g_rgb, = torch.autograd.grad(image.sum(), x)
-    return dict(g_rgb=g_rgb, g_alpha=None, g_depth=None)
+    the rasterizer's rgb ``[bs, is, is, 3]`` (or, with ``key='alpha'``,
+    its alpha ``[bs, is, is]``): through the vertical flip and the 2x2 mean
+    pool of ``api._render_pass``."""
+    if key == 'rgb':
+        x = torch.zeros((bs, is_, is_, 3), device=dev, requires_grad=True)
+        image = api._avg_pool_2x2(torch.flip(x.permute(0, 3, 1, 2), dims=[2]))
+    else:
+        x = torch.zeros((bs, is_, is_), device=dev, requires_grad=True)
+        image = api._avg_pool_2x2(torch.flip(x, dims=[1]))
+    g, = torch.autograd.grad(image.sum(), x)
+    grads = dict(g_rgb=None, g_alpha=None, g_depth=None)
+    grads[f'g_{key}'] = g
+    return grads
 
 
 def _sweep_args(settings, maps, grads):
@@ -793,6 +850,28 @@ def _compare_backward(name, settings, maps, grads, nf, ts, worst):
                'runs bitwise equal')
     _log(' '.join(msg))
     return got
+
+
+def _compare_segments(name, ids, nseg, rng, dev):
+    """The segmented sum against its plain version on random rows
+    ``[len(ids), 3]`` summed onto ``ids``: within ``SEGMENT_TOL`` x the
+    column's max |value|, a repeat run bitwise equal.  Returns (rows, perm,
+    offsets, max abs error)."""
+    rows = torch.as_tensor(rng.normal(0, 1, (ids.shape[0], 3)).astype(
+        np.float32), device=dev)
+    perm, offsets = segments.sort_segments(ids, nseg)
+    got = segments.segment_sum(rows, perm, offsets)
+    again = segments.segment_sum(rows, perm, offsets)
+    want = segments.segment_sum_plain(rows, perm, offsets)
+    torch.cuda.synchronize()
+    _require(bool(torch.equal(got, again)),
+             f'segment_sum {name}: repeat run differs')
+    scale = want.abs().amax(0, keepdim=True)
+    err = (got - want).abs()
+    _require(bool((err <= SEGMENT_TOL * scale).all()),
+             f'segment_sum {name}: differs from the plain version by '
+             f'{float(err.max())}')
+    return rows, perm, offsets, float(err.max())
 
 
 def _anchor_grad(vertices, pyi, pxi, on_face, mode, dev):
@@ -1113,16 +1192,16 @@ def _near(got, want, rtol):
     return abs(got - want) <= rtol * abs(want)
 
 
-def _grad_check(name, got, want):
-    """|card - plain| <= FINGERPRINT_TOL x max |plain|; returns the worst
-    error over that max."""
+def _grad_check(name, got, want, tol=FINGERPRINT_TOL):
+    """|card - plain| <= tol x max |plain|; returns the worst error over
+    that max."""
     got, want = got.detach().cpu(), want.detach()
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     _require(bool(torch.isfinite(got).all()) and scale > 0
-             and err <= FINGERPRINT_TOL * scale,
+             and err <= tol * scale,
              f'{name}: the card differs from the plain version by {err} '
-             f'(max |grad| {scale}, tolerance {FINGERPRINT_TOL} x max)')
+             f'(max |grad| {scale}, tolerance {tol} x max)')
     return err / scale
 
 
@@ -1504,6 +1583,287 @@ def _render_phase(dev, smi, rng, bworst):
          f'{overrides} in {tune_s:.4f} s on {smi}; launches '
          f'{launches["model_tune"]}')
     return launches, max(fworst, cpu_worst), iworst
+
+
+def _protocol_phase(dev, smi, rng, bworst):
+    """Phase 20: misc/torch_measure_time.py at its defaults, the reference
+    protocol (the teapot at batch 1, 256^2 AA, ts 2, azimuths 0-345 by 15,
+    the first sample dropped); one silhouette and one textured forward +
+    backward call profiled over the 24 azimuths; the card's images and
+    gradients at azimuths 0 and 45 against the same functions on the CPU;
+    the three backward kernels (updating ``bworst``) and the segmented sum
+    against their plain versions at the shapes the protocol's calls give
+    them.  Returns ({path: its launches}, the segmented sum's max abs
+    error)."""
+    mt = _load_script(os.path.join(ROOT, 'misc', 'torch_measure_time.py'))
+    means, wall, counts, _ = _run_script(mt, [])
+    n = len(mt.AZIMUTHS)
+    _require(all(np.isfinite(means)) and min(means) > 0,
+             f'measure_time: means {means}')
+    for k in TRAINING_KERNELS:
+        want = 4 * n if k in ('forward_shaded', 'bin_faces') else 2 * n
+        _require(counts[k] >= want, f'measure_time launched {k} {counts[k]} '
+                 f'times in {4 * n} calls, {2 * n} of them backward')
+    _log(f'reference protocol (misc/torch_measure_time.py: teapot bs 1, '
+         f'{OUT_SIZE}^2 AA, ts 2, {n} azimuths, first sample dropped) on '
+         f'{smi}: ' + ', '.join(f'{k} {ms:.3f} ms'
+                                for k, ms in zip(mt.KINDS, means))
+         + f'; {wall:.2f} s wall; launches {counts}')
+
+    card = mt.build(mt.parse_args([]))
+    eyes = [mt.eye_at(a, dev) for a in mt.AZIMUTHS]
+    for kind, call, call_ms in ((mt.KINDS[1], card[1], means[1]),
+                                (mt.KINDS[3], card[3], means[3])):
+        call(eyes[0])                             # warm-up
+        _reset_launches()
+        call(eyes[1])
+        torch.cuda.synchronize()
+        per_call = {k: v for k, v in _launches().items() if v}
+        prof = _step_profile(call, eyes)
+        if prof is None:
+            _log(f'{kind} call profile: the profiler reported no device time '
+                 '(not measured)')
+            continue
+        dev_ms, wall_ms, by, ops = prof
+        _log(f'{kind} call (forward + backward of sum(image)) profiled over '
+             f'{n} azimuths on {smi}: device {dev_ms:.3f} ms a call, '
+             f'{_fmt_ops(ops)}; against the protocol\'s {call_ms:.3f} ms the '
+             f'card idles {100 * (1 - dev_ms / call_ms):.1f}% (profiled wall '
+             f'{wall_ms:.3f} ms); the hand kernels\' launches per call '
+             f'{per_call}; per call '
+             + ', '.join(f'{k} {v:.3f} ms' for k, v in by.items()))
+
+    # the card against the plain versions on the CPU, the same functions
+    t0 = time.perf_counter()
+    cpu = mt.build(mt.parse_args(['--device', 'cpu']))
+    worst = {}
+    for azimuth in (0, 45):
+        for kind, on_card, plain in zip(mt.KINDS, card, cpu):
+            got = on_card(mt.eye_at(azimuth, dev))
+            want = plain(mt.eye_at(azimuth, 'cpu'))
+            name = f'measure_time {kind} at azimuth {azimuth}'
+            if 'forward' in kind:
+                rtol, atol = ((RGB_RTOL, RGB_ATOL) if kind.startswith('texture')
+                              else (RTOL, ATOL))
+                err = float((got.cpu() - want).abs().max())
+                _require(torch.allclose(got.cpu(), want, rtol=rtol, atol=atol),
+                         f'{name}: the card differs from the CPU by {err}')
+                worst[kind] = max(worst.get(kind, 0.0), err)
+                continue
+            for part, g, w in zip(('vertices', 'textures'), got, want):
+                key = f'{kind} {part}'
+                worst[key] = max(worst.get(key, 0.0), _grad_check(
+                    f'{name} ({part})', g, w, SUM_TOL))
+    _log('reference protocol at azimuths 0 and 45, the card against the '
+         f'plain versions on the CPU: images max abs err '
+         + ', '.join(f'{k} {v:.3g}' for k, v in worst.items()
+                     if 'forward' in k)
+         + f' (silhouettes rtol {RTOL} atol {ATOL}, rgb rtol {RGB_RTOL} '
+         f'atol {RGB_ATOL}); gradients '
+         + ', '.join(f'{k} {v:.3g} x max' for k, v in worst.items()
+                     if 'forward' not in k)
+         + f' (tolerance {SUM_TOL} x max |grad|); '
+         f'{time.perf_counter() - t0:.1f} s')
+
+    # the backward kernels and the vertex scatter at the protocol's shapes:
+    # the teapot at azimuth 45, batch 1, a 512^2 raster; the output
+    # gradients of sum(image), and random ones (the silhouettes' sum gives
+    # the out-sweep nothing to sum)
+    args = mt.parse_args([])
+    r = nt.Renderer()
+    r.image_size = args.image_size
+    r.eye = mt.eye_at(45, dev)
+    vertices, faces = nt.load_obj(args.filename_input)
+    v, f, t = nt.arrays_from_numpy(
+        vertices[None], faces[None], np.ones(
+            (1, faces.shape[0]) + (mt.TEXTURE_SIZE,) * 3 + (3,), np.float32),
+        dev)
+    fc, lit = r._lit_faces(v, f, t)
+    raster, nf2 = 2 * args.image_size, fc.shape[1]
+    for mode, rgb, textures in (('silhouettes', False, None),
+                                ('textured', True, lit)):
+        s = RasterizeSettings(
+            image_size=raster, near=float(r.near), far=float(r.far),
+            eps=float(r.rasterizer_eps), return_rgb=rgb,
+            return_alpha=not rgb, return_depth=False)
+        maps, grads = _bwd_scene(s, fc, textures, rng, dev)
+        for kind, g in (('sum(image)', _sum_image_grads(
+                1, raster, dev, 'rgb' if rgb else 'alpha')),
+                        ('random', grads)):
+            _compare_backward(
+                f'measure_time {raster}^2 bs 1 ts {mt.TEXTURE_SIZE} {mode}, '
+                f'{kind} output gradients, azimuth 45', s, maps, g, nf2,
+                mt.TEXTURE_SIZE, bworst)
+    ids = r._fill_back_faces(f.long()).reshape(-1)
+    *_, seg_err = _compare_segments('measure_time vertices', ids,
+                                    vertices.shape[0], rng, dev)
+    _log(f'segment_sum measure_time vertices: {ids.shape[0]} rows onto '
+         f'{vertices.shape[0]} vertices, max abs err {seg_err:.3g} '
+         f'({SEGMENT_TOL} x column max), repeat run bitwise equal')
+    return {'measure_time': counts}, seg_err
+
+
+def _multiview_phase(dev, smi):
+    """Phase 21: misc/torch_multiview.py at its defaults, BASELINE config
+    5 (64 views of the teapot at 512^2 AA through ``render_rgbad``, tuned
+    over 8 eyes, one warm-up and 4 timed calls over a one-rank group), its
+    memory peak, one call profiled; the script's output bit-equal to
+    ``render_rgbad`` in one call and in 8 calls of 8 views; the forward
+    maps of all the views against the plain version on the card; the
+    index kernel against its plain version on each of the 8 scenes ``tune``
+    gives it, timed; the binning at this size against its plain version,
+    timed.  Returns ({path: its launches}, forward worst error, index
+    worst error)."""
+    mv = _load_script(os.path.join(ROOT, 'misc', 'torch_multiview.py'))
+    args = mv.parse_args([])
+    nv, raster = args.views, 2 * args.image_size
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (out, timing), wall, counts, _ = _run_script(mv, [])
+    run_peak = torch.cuda.max_memory_allocated()
+    _require(counts['forward_index'] == 8,
+             f'multiview\'s tune launched the index kernel '
+             f'{counts["forward_index"]} times, not 8')
+    _require(counts['forward_shaded'] >= 1 + args.iters,
+             f'multiview launched {counts}')
+    shapes = {k: tuple(out[k].shape) for k in ('rgb', 'alpha', 'depth')}
+    _require(shapes == {'rgb': (nv, 3, args.image_size, args.image_size),
+                        'alpha': (nv, args.image_size, args.image_size),
+                        'depth': (nv, args.image_size, args.image_size)},
+             f'multiview output shapes {shapes}')
+    means = {k: float(out[k].mean()) for k in out}
+    _log(f'BASELINE config 5 (misc/torch_multiview.py: {nv} views of the '
+         f'teapot at {args.image_size}^2 AA, rgb + alpha + depth, '
+         f'{timing["ranks"]} rank) on {smi}: {timing["ms_per_batch"]:.3f} '
+         f'ms/batch, {timing["images_per_s"]:.2f} images/s over '
+         f'{args.iters} calls; {wall:.2f} s wall with tune; outputs finite, '
+         f'shapes {shapes}, means '
+         + ', '.join(f'{k} {v:.4f}' for k, v in means.items())
+         + f'; peak device memory {run_peak / 2 ** 30:.2f} GiB; launches '
+         f'{counts}')
+
+    renderer, v, f, tx, eyes = mv.build(args)
+    with torch.no_grad():
+        def render():
+            return renderer.render_rgbad(v, f, tx)
+
+        whole = render()
+        for k in out:
+            _require(_bits_equal(whole[k], out[k]),
+                     f'multiview {k}: the script\'s one-rank render differs '
+                     'from render_rgbad')
+        for i in range(0, nv, 8):
+            renderer.eye = eyes[i:i + 8]
+            part = renderer.render_rgbad(v[i:i + 8], f[i:i + 8], tx[i:i + 8])
+            for k in out:
+                _require(_bits_equal(part[k], whole[k][i:i + 8]),
+                         f'multiview {k}: views {i}-{i + 7} in a call of 8 '
+                         f'differ from the call of {nv}')
+        renderer.eye = eyes
+        del out, part
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kept = render()
+        call_peak = torch.cuda.max_memory_allocated() - base
+        # under no_grad the rasterizer saves nothing for a backward: a call
+        # holds its outputs and no map (one map plane is 256 MiB here)
+        held = torch.cuda.memory_allocated() - base
+        out_bytes = sum(x.numel() * x.element_size() for x in kept.values())
+        _require(held - out_bytes < 2 ** 26,
+                 f'multiview: a call under no_grad holds {held} bytes for '
+                 f'{out_bytes} bytes of outputs')
+        del kept
+        prof = _step_profile(lambda _: render(), range(3))
+        top = _top_device_ops(render)
+        fc, lit = renderer._lit_faces(v, f, tx)
+    call_ms = timing['ms_per_batch']
+    if prof is None:
+        _log('multiview call profile: the profiler reported no device time '
+             '(not measured)')
+    else:
+        dev_ms, wall_ms, by, ops = prof
+        _log(f'multiview call profiled (3 calls) on {smi}: device '
+             f'{dev_ms:.3f} ms a call, {_fmt_ops(ops)}; against the '
+             f'script\'s {call_ms:.3f} ms the card idles '
+             f'{100 * (1 - dev_ms / call_ms):.1f}% (profiled wall '
+             f'{wall_ms:.3f} ms); forward kernel {by["forward_shaded"]:.3f} '
+             f'ms a call; a call\'s peak above what it was handed '
+             f'{call_peak / 2 ** 30:.2f} GiB, what it holds after '
+             f'{held} bytes ({out_bytes} of outputs); the largest device '
+             'operations of one call: '
+             + ', '.join(f'{k[:60]} {ms:.3f} ms' for k, ms in top))
+    _log(f'multiview: {nv} views in one call bit-equal to {nv // 8} calls '
+         f'of 8 and to the script\'s one-rank sharded render; the forward '
+         f'kernel\'s '
+         f'largest flat offset {nv * 17 * raster * raster - 1} (bs x 17 '
+         f'words x {raster}^2) of int32\'s {2 ** 31 - 1}')
+
+    # the forward maps of all the views against the plain version, timed
+    s = RasterizeSettings(image_size=raster, eps=1e-3)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fworst = _compare(f'multiview {raster}^2 bs {nv} ts 2', s, fc, lit)
+    cmp_s = time.perf_counter() - t0
+    cmp_peak = torch.cuda.max_memory_allocated()
+
+    def kernel():
+        return forward_cuda.forward_shaded(s, fc, lit)
+
+    def plain():
+        return forward_cuda.forward_shaded_plain(s, fc, lit)
+
+    ms = _time_ms(kernel, reps=10, warmup=2)
+    plain_ms = _time_ms(plain, reps=1, warmup=0)
+    alone = _kernel_device_ms(kernel, 5, 'shaded_kernel')
+    _log(f'multiview forward maps at {raster}^2, {nv} views: equal to the '
+         f'plain version (the comparison {cmp_s:.1f} s, peak device memory '
+         f'{cmp_peak / 2 ** 30:.2f} GiB); forward_shaded {ms:.3f} ms a call, '
+         f'alone {_fmt_ms(alone)}, plain {plain_ms:.3f} ms on {smi}')
+    del kernel, plain
+    torch.cuda.empty_cache()
+
+    # the index kernel on the scenes tune gives it: every tuned eye's face
+    # coords of all the views, alpha only, at the raster's size
+    st = RasterizeSettings(image_size=raster, near=float(renderer.near),
+                           far=float(renderer.far), return_rgb=False,
+                           return_alpha=True, return_depth=False)
+    fb = renderer._fill_back_faces(f.long())
+    tuned = mv.tuned_eyes(eyes)
+    iworst = 0.0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for k, eye in enumerate(tuned):
+            renderer.eye = eye
+            fct = vertices_to_faces(renderer._transform(v), fb)
+            iworst = max(iworst, _compare_index(
+                f'multiview tune eye {k}: {raster}^2 bs {nv}', st, fct))
+    renderer.eye = eyes
+    cmp_s = time.perf_counter() - t0
+    index_ms = _time_ms(lambda: forward_cuda.forward_face_index_map(st, fct),
+                        reps=10, warmup=2)
+    index_plain_ms = _time_ms(
+        lambda: forward_cuda.forward_face_index_map_plain(st, fct), reps=1,
+        warmup=0)
+    _log(f'multiview tune\'s index maps at {raster}^2, {nv} views, '
+         f'{len(tuned)} eyes: equal to the plain version ({cmp_s:.1f} s); '
+         f'forward_face_index_map {index_ms:.3f} ms a call, plain '
+         f'{index_plain_ms:.3f} ms on {smi}')
+    del fct, fb
+
+    # the binning at this size: (tile, chunk) cells, the sync's wait
+    tile = forward_cuda._kernel().nr_forward_shaded_tile()
+    cells = forward_cuda._bin_sizes(nv, fc.shape[1], raster, tile)[0]
+    pairs = _compare_bins(f'multiview {raster}^2 bs {nv}', s, fc)
+    times = _binning_times(f'of multiview, {nv} views at {raster}^2, nf '
+                           f'{fc.shape[1]}', s, fc, tile, smi)
+    _log(f'multiview binning: {cells} (tile, chunk) cells scanned, {pairs} '
+         f'(tile, face) pairs; bin_setup {times["ms"]:.3f} ms a call, its '
+         f'device operations {_fmt_ms(times["alone_ms"])}, the sync\'s wait '
+         f'{_fmt_ms(times["sync_wait_ms"])}')
+    return {'multiview': counts}, fworst, iworst
 
 
 def main():
@@ -2414,21 +2774,9 @@ def main():
         rng.randint(0, nseg8 + nseg8 // 3, n8), device=dev), nseg8))
     seg_worst = tex_err
     for name, ids, nseg in seg_cases:
-        rows = torch.as_tensor(rng.normal(0, 1, (ids.shape[0], 3)).astype(
-            np.float32), device=dev)
-        perm, offsets = segments.sort_segments(ids, nseg)
-        got = segments.segment_sum(rows, perm, offsets)
-        again = segments.segment_sum(rows, perm, offsets)
-        want = segments.segment_sum_plain(rows, perm, offsets)
-        torch.cuda.synchronize()
-        _require(bool(torch.equal(got, again)),
-                 f'segment_sum {name}: repeat run differs')
-        scale = want.abs().amax(0, keepdim=True)
-        err = (got - want).abs()
-        _require(bool((err <= SEGMENT_TOL * scale).all()),
-                 f'segment_sum {name}: differs from the plain version by '
-                 f'{float(err.max())}')
-        seg_worst = max(seg_worst, float(err.max()))
+        rows, perm, offsets, err = _compare_segments(name, ids, nseg, rng,
+                                                     dev)
+        seg_worst = max(seg_worst, err)
 
         def kern():
             return segments.segment_sum(rows, perm, offsets)
@@ -2455,7 +2803,7 @@ def main():
         seg['bound_ms'], seg['bound_by'] = _bound(
             (4 * 3 + 8) * used + 8 * (nseg + 1) + 4 * 3 * nseg, 3 * used)
         _log(f'segment_sum {name}: {used} rows onto {nseg} segments, max abs '
-             f'err {float(err.max()):.3g} ({SEGMENT_TOL} x column max), '
+             f'err {err:.3g} ({SEGMENT_TOL} x column max), '
              f'repeat runs bitwise equal; a call {seg["ms"]:.3f} ms, alone '
              f'{_fmt_ms(seg["alone_ms"])}, plain {seg["plain_ms"]:.3f} ms, '
              f'index_add_ {seg["library_ms"]:.3f} ms (medians of 5 rounds '
@@ -2466,7 +2814,7 @@ def main():
             seg_main = seg
         else:
             seg_ts8 = seg
-        del rows, perm, offsets, got, again, want, err
+        del rows, perm, offsets
     del seg_cases, flat
 
     # ---- 15. parallel on one card: 2 ranks over gloo ----
@@ -2542,6 +2890,17 @@ def main():
     worst = max(worst, fworst)
     iworst = max(iworst, iworst19)
 
+    # ---- 20. the reference timing protocol ----
+    torch.cuda.empty_cache()
+    protocol_launches, seg_err20 = _protocol_phase(dev, smi, rng, bworst)
+    seg_worst = max(seg_worst, seg_err20)
+
+    # ---- 21. BASELINE config 5: 64 views at 512^2 ----
+    torch.cuda.empty_cache()
+    multiview_launches, fworst, iworst21 = _multiview_phase(dev, smi)
+    worst = max(worst, fworst)
+    iworst = max(iworst, iworst21)
+
     sources = {
         'forward_shaded': ('neural_renderer_torch/csrc/forward_shaded.cu',
                            'neural_renderer_tpu/rasterize/'
@@ -2580,8 +2939,7 @@ def main():
         'model_24_views')}
     times['segment_sum'] = (seg_main['ms'], seg_main['plain_ms'])
     bounds['segment_sum'] = (seg_main['bound_ms'], seg_main['bound_by'])
-    # its device time per launch as the training step runs it (phase 7)
-    alone['segment_sum'] = segment_step_ms
+    alone['segment_sum'] = seg_main['alone_ms']
     library['segment_sum'] = seg_main['library_ms']
     extra['segment_sum'] = dict(step_profile_ms=segment_step_ms,
                                 ts8_texture_scale=seg_ts8,
@@ -2597,6 +2955,10 @@ def main():
                               for ex, c in example_launches.items()},
         'phase19_launches': {path: c[name]
                              for path, c in render_launches.items()},
+        'phase20_launches': {path: c[name]
+                             for path, c in protocol_launches.items()},
+        'phase21_launches': {path: c[name]
+                             for path, c in multiview_launches.items()},
         **extra.get(name, {}),
     } for name, (src, rep, err_k, counts) in sources.items()]}))
     _log(json.dumps({'ok': True, 'device': {

@@ -9,7 +9,9 @@ render it on the CPU.  Likewise the port's examples
 (``misc/torch_grad_quality.py``) and dataset renderer
 (``misc/torch_render.py``, which renders an OBJ without materials there)
 import where jax, Pillow, imageio and tqdm cannot, and import neither JAX
-nor ``neural_renderer_tpu``.
+nor ``neural_renderer_tpu``; so do the reference timing protocol
+(``misc/torch_measure_time.py``) and BASELINE config 5
+(``misc/torch_multiview.py``), each run once at a tiny size.
 """
 
 import os
@@ -96,3 +98,41 @@ def test_examples_and_study_import_without_jax():
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=ROOT))
     assert 'SCRIPTS-OK' in out.stdout, (out.stdout, out.stderr)
+
+
+# the port's scripts of the reference timing protocol and of BASELINE
+# config 5, imported by path where jax and Pillow cannot be imported; each
+# runs once at a tiny size on the CPU
+TIMING = r'''
+import contextlib, importlib.util, io, sys
+for m in ('jax', 'PIL', 'tqdm'):
+    sys.modules[m] = None
+import torch
+torch.set_num_threads(1)
+mods = {}
+for path in ['misc/torch_measure_time.py', 'misc/torch_multiview.py']:
+    spec = importlib.util.spec_from_file_location(path.replace('/', '_'), path)
+    mods[path] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mods[path])
+mt = mods['misc/torch_measure_time.py']
+calls = mt.build(mt.parse_args(['-is', '16', '--device', 'cpu']))
+eye = mt.eye_at(30, 'cpu')
+assert calls[0](eye).shape == (1, 16, 16)
+assert calls[3](eye)[1].shape == (1, 2464, 2, 2, 2, 3)
+with contextlib.redirect_stdout(io.StringIO()):
+    out, timing = mods['misc/torch_multiview.py'].run(
+        ['--views', '2', '--image_size', '16', '--iters', '1', '--device',
+         'cpu'])
+assert out['rgb'].shape == (2, 3, 16, 16) and timing['ranks'] == 1
+assert not any(m.startswith('jax') and sys.modules[m] is not None
+               for m in sys.modules)
+assert not any(m.startswith('neural_renderer_tpu') for m in sys.modules)
+print('TIMING-OK')
+'''
+
+
+def test_timing_scripts_import_without_jax():
+    out = subprocess.run([sys.executable, '-c', TIMING], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert 'TIMING-OK' in out.stdout, (out.stdout, out.stderr)

@@ -21,7 +21,11 @@ rendered and their gradients, and the tests hold them against one process:
 * the 2 x 2 composition of a batch group and a face group;
 * the data-parallel step: the loss falls over 3 steps and the averaged
   gradients equal one process's on the whole batch within 1e-5 of their
-  max.
+  max;
+* ``misc/torch_multiview.py`` in 2 ranks started as ``torchrun`` starts
+  them (the group named by the environment only, made and destroyed by the
+  script): the ranks' slices, joined, equal one process's
+  ``render_rgbad`` of all the views bit for bit.
 
 The ranks import neither JAX nor the JAX package: only the parent does.
 The ranks and the one-process references each run one CPU thread.  A
@@ -29,7 +33,11 @@ face-sharded image that differs names its first differing pixel and the
 rank whose face wins it.
 """
 
+import contextlib
+import importlib.util
+import io
 import os
+import socket
 import time
 
 import numpy as np
@@ -44,6 +52,8 @@ from neural_renderer_torch.rasterize import forward_dense
 from neural_renderer_torch.rasterize.config import RasterizeSettings
 
 TEAPOT = os.path.join(os.path.dirname(__file__), 'data', 'teapot.obj')
+MULTIVIEW = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), 'misc', 'torch_multiview.py')
 BS = 4
 IMAGE = 32
 JOIN_TIMEOUT = 60.0
@@ -60,21 +70,37 @@ def _threads():
     torch.set_num_threads(saved)
 
 
-def _entry(rank, fn, world, path, args):
+def _entry(rank, fn, world, path, args, port):
     torch.set_num_threads(THREADS)
-    dist.init_process_group('gloo', init_method=f'file://{path}/rendezvous',
-                            world_size=world, rank=rank)
+    if port is None:
+        dist.init_process_group('gloo',
+                                init_method=f'file://{path}/rendezvous',
+                                world_size=world, rank=rank)
+    else:
+        # as torchrun starts a rank: the environment names the group, and
+        # ``fn`` makes it
+        os.environ.update(MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port),
+                          WORLD_SIZE=str(world), RANK=str(rank),
+                          LOCAL_RANK=str(rank))
     try:
         torch.save(fn(rank, world, *args), f'{path}/rank{rank}.pt')
     finally:
-        dist.destroy_process_group()
+        if port is None:
+            dist.destroy_process_group()
 
 
-def _spawn(fn, world, path, *args):
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def _spawn(fn, world, path, *args, port=None):
     """Run ``fn(rank, world, *args)`` in ``world`` gloo ranks; returns
-    each rank's result."""
+    each rank's result.  With a ``port`` the ranks get torchrun's
+    environment on it instead of a group."""
     os.makedirs(path, exist_ok=True)
-    ctx = mp.spawn(_entry, args=(fn, world, path, args), nprocs=world,
+    ctx = mp.spawn(_entry, args=(fn, world, path, args, port), nprocs=world,
                    join=False)
     deadline = time.monotonic() + JOIN_TIMEOUT
     while not ctx.join(timeout=1.0):
@@ -392,3 +418,39 @@ def test_data_parallel_step(tmp_path):
     assert float((got - want).abs().max()) <= 1e-5 * scale
     loss = float(loss.detach())
     assert abs(results[0]['losses'][0] - loss) <= 1e-5 * loss
+
+
+def _multiview_script():
+    spec = importlib.util.spec_from_file_location('torch_multiview_',
+                                                  MULTIVIEW)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _multiview_worker(rank, world, argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out, timing = _multiview_script().run(argv)
+    return dict(out=out, timing=timing, printed=buf.getvalue(),
+                group_left=dist.is_initialized())
+
+
+def test_multiview_script_under_torchrun(tmp_path):
+    argv = ['--views', '4', '--image_size', '32', '--iters', '1',
+            '--device', 'cpu']
+    results = _spawn(_multiview_worker, 2, str(tmp_path), argv,
+                     port=_free_port())
+    script = _multiview_script()
+    renderer, v, f, tx, _ = script.build(script.parse_args(argv))
+    with torch.no_grad():
+        want = renderer.render_rgbad(v, f, tx)
+    for k in ('rgb', 'alpha', 'depth'):
+        assert [r['out'][k].shape[0] for r in results] == [2, 2], k
+        assert torch.equal(torch.cat([r['out'][k] for r in results]),
+                           want[k]), k
+    assert [r['timing']['ranks'] for r in results] == [2, 2]
+    assert results[0]['printed'].startswith(
+        '4 views @ 32^2 rgb+alpha+depth over 2 device(s): ')
+    assert results[1]['printed'] == ''
+    assert not any(r['group_left'] for r in results)
