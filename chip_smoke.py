@@ -206,7 +206,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 import neural_renderer_torch as nt
-from neural_renderer_torch import _build, parallel
+from neural_renderer_torch import _build, parallel, tracing
 from neural_renderer_torch.io.image import imread
 from neural_renderer_torch.ops.vertices_to_faces import vertices_to_faces
 from neural_renderer_torch.ops import segments
@@ -230,6 +230,9 @@ KERNELS = ('forward_shaded', 'forward_index', 'backward_sweeps',
 # the kernels a training step launches (the index kernel serves tune)
 TRAINING_KERNELS = ('forward_shaded', 'insweep', 'outsweep', 'face_reduce',
                     'bin_faces', 'segment_sum')
+# every hand-written kernel, as tracing.COUNTS counts its launches
+LAUNCHED = ('forward_shaded', 'forward_index', 'bin_faces', 'insweep',
+            'outsweep', 'face_reduce', 'segment_sum')
 # the setup and binning's device operations, by the substrings of their
 # profiler names: its count and fill kernels and CUB's scan (two kernels)
 BINNING_OPS = ('bin_count_kernel', 'bin_fill_kernel', 'DeviceScan')
@@ -332,15 +335,13 @@ def _teapot():
 
 
 def _reset_launches():
-    for counts in (forward_cuda.LAUNCHES, backward_cuda.LAUNCHES,
-                   segments.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    tracing.reset()
 
 
 def _launches():
-    return dict(**forward_cuda.LAUNCHES, **backward_cuda.LAUNCHES,
-                **segments.LAUNCHES)
+    """Launches of each hand-written kernel since ``_reset_launches``."""
+    counts = tracing.counts()
+    return {k: counts.get('launch.' + k, 0) for k in LAUNCHED}
 
 
 def _bound(nbytes, ops):
@@ -525,10 +526,10 @@ def _profile():
     ``PROFILE_PAD_S`` of idle host time at each end (the card synchronized
     before the first pad and the second).  The card's timestamps stray from
     the host's by milliseconds, and the profiler drops the device events
-    that fall outside its window: ``misc/torch_profile_window.py`` on an
-    H100 stamped kernels from 4.5 ms before to 1.5 ms after their launch,
-    and of 280 windows of 5 short kernels, 10 unpadded ones lost launches
-    and no padded one."""
+    that fall outside its window: ``misc/torch_profile_window.py`` (commit
+    ed5d907; removed since) on an H100 stamped kernels from 4.5 ms before
+    to 1.5 ms after their launch, and of 280 windows of 5 short kernels, 10
+    unpadded ones lost launches and no padded one."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -549,7 +550,6 @@ def _kernel_device_ms(fn, reps, kernel_name):
     run of this script on an H100), so an empty window is logged and
     profiled again, up to ``PROFILE_TRIES`` windows; None where none caught
     any."""
-    from torch.autograd import DeviceType
     patterns = ((kernel_name,) if isinstance(kernel_name, str)
                 else kernel_name)
     fn()
@@ -558,9 +558,8 @@ def _kernel_device_ms(fn, reps, kernel_name):
             for _ in range(reps):
                 fn()
         by = {}                                 # name: [us, events]
-        for ev in prof.events():
-            if (ev.device_type == DeviceType.CUDA
-                    and any(p in ev.name for p in patterns)):
+        for ev in _device_events(prof):
+            if any(p in ev.name for p in patterns):
                 entry = by.setdefault(ev.name, [0.0, 0])
                 entry[0] += ev.time_range.elapsed_us()
                 entry[1] += 1
@@ -571,6 +570,17 @@ def _kernel_device_ms(fn, reps, kernel_name):
         _log(f'profiler window {tries} of {PROFILE_TRIES} caught no launch '
              f'of {patterns}')
     return None
+
+
+def _device_events(prof):
+    """The card's operations (kernels, copies, memsets) among a profile's
+    events: not the ``record_function`` spans (the port's ``nr.*``), which
+    the profiler mirrors on the device's timeline."""
+    from torch.autograd import DeviceType
+    return [ev for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, 'is_user_annotation', False)
+            and not ev.name.startswith(tracing.PREFIX)]
 
 
 # kernels whose device time the training-step profile reports, by the
@@ -586,7 +596,6 @@ def _step_profile(step, eyes):
     wall ms per step; {kernel: mean device ms per launch, one launch per
     step}; {'kernels', 'copies', 'memsets': device operations per step}),
     or None where the profiler reports no device time."""
-    from torch.autograd import DeviceType
     with _profile() as prof:
         t0 = time.perf_counter()
         for eye in eyes:
@@ -595,9 +604,7 @@ def _step_profile(step, eyes):
         wall = time.perf_counter() - t0
     total = 0.0
     by = {k: [0.0, 0, set()] for k in PROFILED}   # us, events, kernels
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
+    for ev in _device_events(prof):
         us = ev.time_range.elapsed_us()
         total += us
         for name, pattern in PROFILED.items():
@@ -619,12 +626,10 @@ def _step_profile(step, eyes):
 def _op_counts(prof, n):
     """{'kernels', 'copies', 'memsets': device operations per call} of a
     profile of ``n`` calls."""
-    from torch.autograd import DeviceType
     ops = {'kernels': 0, 'copies': 0, 'memsets': 0}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            ops['copies' if 'Memcpy' in ev.name else
-                'memsets' if 'Memset' in ev.name else 'kernels'] += 1
+    for ev in _device_events(prof):
+        ops['copies' if 'Memcpy' in ev.name else
+            'memsets' if 'Memset' in ev.name else 'kernels'] += 1
     return {k: v / n for k, v in ops.items()}
 
 
@@ -650,16 +655,14 @@ def _op_times(fn, reps=10, name=_op_name):
     """{device operation: ms per call of ``fn``} over ``reps`` calls after
     one more, from torch.profiler; operations go by ``name`` of their
     profiler names (by default cut to the function's own name)."""
-    from torch.autograd import DeviceType
     fn()
     with _profile() as prof:
         for _ in range(reps):
             fn()
     by = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            key = name(ev.name)
-            by[key] = by.get(key, 0.0) + ev.time_range.elapsed_us()
+    for ev in _device_events(prof):
+        key = name(ev.name)
+        by[key] = by.get(key, 0.0) + ev.time_range.elapsed_us()
     return {k: us / reps / 1e3 for k, us in by.items()}
 
 

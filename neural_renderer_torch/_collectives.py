@@ -10,13 +10,17 @@ on gloo (the CPU tests, ranks sharing one card) and on NCCL.
 
 import torch.distributed as dist
 
+from neural_renderer_torch import tracing
+
 
 def all_reduce(t, op, group):
     """``t`` reduced in place by ``op`` (``dist.ReduceOp``) over
     ``group``; returns ``t``."""
     if t.is_cuda and dist.get_backend(group) == dist.Backend.GLOO:
-        host = t.cpu()
+        with tracing.wait('read', 'all_reduce'):
+            host = t.cpu()
         dist.all_reduce(host, op=op, group=group)
-        return t.copy_(host)
+        with tracing.wait('copy', 'all_reduce'):
+            return t.copy_(host)
     dist.all_reduce(t, op=op, group=group)
     return t

@@ -24,9 +24,11 @@ def lighting(
     bs, nf = faces.shape[:2]
     dev = faces.device
 
-    color_ambient = _as_batched_vec3(color_ambient, bs, dev)
-    color_directional = _as_batched_vec3(color_directional, bs, dev)
-    direction = _as_batched_vec3(direction, bs, dev)
+    color_ambient = _as_batched_vec3(color_ambient, bs, dev,
+                                     'lighting.color_ambient')
+    color_directional = _as_batched_vec3(color_directional, bs, dev,
+                                         'lighting.color_directional')
+    direction = _as_batched_vec3(direction, bs, dev, 'lighting.direction')
 
     light = torch.zeros((bs, nf, 3), dtype=torch.float32, device=dev)
 

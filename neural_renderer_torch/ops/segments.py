@@ -11,7 +11,7 @@ run.
 
 A CUDA tensor runs the hand-written kernel ``csrc/segment_sum.cu`` (or
 raises); a CPU tensor runs ``segment_sum_plain``, an ``index_add_``.
-``LAUNCHES`` counts kernel launches.
+``tracing.COUNTS['launch.segment_sum']`` counts kernel launches.
 """
 
 import ctypes
@@ -19,10 +19,8 @@ import functools
 
 import torch
 
-from neural_renderer_torch import _build
+from neural_renderer_torch import _build, tracing
 from neural_renderer_torch.rasterize.config import on_card
-
-LAUNCHES = {'segment_sum': 0}
 
 
 @functools.cache
@@ -92,5 +90,5 @@ def segment_sum(rows, perm, offsets):
             rows.data_ptr(), perm.data_ptr(), offsets.data_ptr(), n, nseg, C,
             out.data_ptr(), _build.raw_stream(index))
     _build.raise_on_error(lib, rc, 'segment_sum')
-    LAUNCHES['segment_sum'] += 1
+    tracing.COUNTS['launch.segment_sum'] += 1
     return out

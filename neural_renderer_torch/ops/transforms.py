@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from neural_renderer_torch import tracing
 from neural_renderer_torch.ops.cross import cross
 from neural_renderer_torch.rasterize.config import as_tensors
 
@@ -38,13 +39,15 @@ def _normalize(x, dim=-1):
     return x / (norm + _NORMALIZE_EPS)
 
 
-def _as_batched_vec3(v, batch_size, device):
+def _as_batched_vec3(v, batch_size, device, site):
     """list/tuple/array/tensor -> [batch_size, 3] f32 tensor on ``device``
-    (1-D input is broadcast)."""
-    if isinstance(v, torch.Tensor):
-        v = v.to(device=device, dtype=torch.float32)
-    else:
-        v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    (1-D input is broadcast); a copy from the host is counted at ``site``
+    (``tracing.host_copy``)."""
+    with tracing.host_copy(site, v, device):
+        if isinstance(v, torch.Tensor):
+            v = v.to(device=device, dtype=torch.float32)
+        else:
+            v = torch.as_tensor(v, dtype=torch.float32, device=device)
     if v.ndim == 1:
         v = v[None, :].expand(batch_size, 3)
     return v
@@ -82,9 +85,9 @@ def look_at(vertices, eye, at=None, up=None):
         at = [0.0, 0.0, 0.0]
     if up is None:
         up = [0.0, 1.0, 0.0]
-    eye = _as_batched_vec3(eye, bs, dev)
-    at = _as_batched_vec3(at, bs, dev)
-    up = _as_batched_vec3(up, bs, dev)
+    eye = _as_batched_vec3(eye, bs, dev, 'look_at.eye')
+    at = _as_batched_vec3(at, bs, dev, 'look_at.at')
+    up = _as_batched_vec3(up, bs, dev, 'look_at.up')
 
     z_axis = _normalize(at - eye)
     x_axis = _normalize(cross(up, z_axis))
@@ -104,9 +107,9 @@ def look(vertices, eye, direction=None, up=None):
         direction = [0.0, 0.0, 1.0]
     if up is None:
         up = [0.0, 1.0, 0.0]
-    eye = _as_batched_vec3(eye, bs, dev)
-    direction = _as_batched_vec3(direction, bs, dev)
-    up = _as_batched_vec3(up, bs, dev)
+    eye = _as_batched_vec3(eye, bs, dev, 'look.eye')
+    direction = _as_batched_vec3(direction, bs, dev, 'look.direction')
+    up = _as_batched_vec3(up, bs, dev, 'look.up')
 
     z_axis = _normalize(direction)
     x_axis = _normalize(cross(up, z_axis))
@@ -121,8 +124,9 @@ def perspective(vertices, angle=30.0):
     literal 3.1416 (reproduced deliberately — golden-image parity).
     """
     _check_vertices(vertices)
-    angle = torch.as_tensor(angle, dtype=torch.float32,
-                            device=vertices.device)
+    with tracing.host_copy('perspective.angle', angle, vertices.device):
+        angle = torch.as_tensor(angle, dtype=torch.float32,
+                                device=vertices.device)
     angle = angle / 180.0 * 3.1416
     width = torch.tan(angle)
     # broadcast over [bs, nv]

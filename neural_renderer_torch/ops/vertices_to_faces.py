@@ -24,6 +24,7 @@ import collections
 import torch
 import torch.distributed as dist
 
+from neural_renderer_torch import tracing
 from neural_renderer_torch._collectives import all_reduce
 from neural_renderer_torch.ops import segments
 from neural_renderer_torch.rasterize.config import on_card
@@ -73,7 +74,9 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vertices, faces, group, fill_back):
         bs, nv = vertices.shape[:2]
-        f = faces.to(device=vertices.device, dtype=torch.int64)
+        with tracing.host_copy('vertices_to_faces.faces', faces,
+                               vertices.device):
+            f = faces.to(device=vertices.device, dtype=torch.int64)
         if fill_back:
             f = fill_back_faces(f)
         flat = _flat_index(f, nv)
@@ -88,15 +91,17 @@ class _Gather(torch.autograd.Function):
         flat, = ctx.saved_tensors
         bs, nv = ctx.faces.shape[0], ctx.nv
         rows = g.reshape(-1, 3)
-        if not on_card(rows):
-            gv = torch.zeros((bs * nv, 3), dtype=g.dtype, device=g.device)
-            gv.index_add_(0, flat, rows)
-        else:
-            perm, offsets = _sort(ctx.faces, flat, bs * nv,
-                                  (ctx.fill_back, rows.device))
-            gv = segments.segment_sum(rows, perm, offsets)
-        if ctx.group is not None:
-            all_reduce(gv, dist.ReduceOp.SUM, ctx.group)
+        with tracing.span('backward'), tracing.span('backward.scatter'):
+            if not on_card(rows):
+                gv = torch.zeros((bs * nv, 3), dtype=g.dtype,
+                                 device=g.device)
+                gv.index_add_(0, flat, rows)
+            else:
+                perm, offsets = _sort(ctx.faces, flat, bs * nv,
+                                      (ctx.fill_back, rows.device))
+                gv = segments.segment_sum(rows, perm, offsets)
+            if ctx.group is not None:
+                all_reduce(gv, dist.ReduceOp.SUM, ctx.group)
         return gv.reshape(bs, nv, 3), None, None, None
 
 

@@ -13,6 +13,7 @@ import warnings
 import numpy as np
 import torch
 
+from neural_renderer_torch import tracing
 from neural_renderer_torch.rasterize.config import (
     DEFAULT_ANTI_ALIASING,
     DEFAULT_BACKGROUND_COLOR,
@@ -45,14 +46,18 @@ def use_unsafe_rasterizer(flag):
             'always deterministic (no atomics to trade away).')
 
 
-def _as_tensor(x, dtype=torch.float32, device=None):
+def _as_tensor(x, dtype=torch.float32, device=None, *, site):
     """Tensor of ``dtype``; a tensor keeps its device unless one is given,
     anything else (numpy array, list) lands on ``device`` (default: the
-    card, ``config.resolve_device``)."""
+    card, ``config.resolve_device``).  A copy from the host is counted at
+    ``site`` (``tracing.host_copy``)."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device or x.device, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype,
-                           device=resolve_device(device))
+        device = device or x.device
+        with tracing.host_copy(site, x, device):
+            return x.to(device=device, dtype=dtype)
+    device = resolve_device(device)
+    with tracing.host_copy(site, x, device):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 def _background_array(background_color, device):
@@ -60,7 +65,8 @@ def _background_array(background_color, device):
     element (reference rasterize.py:462-465 supports both ndims)."""
     if background_color is None:
         background_color = DEFAULT_BACKGROUND_COLOR
-    arr = _as_tensor(background_color, device=device)
+    arr = _as_tensor(background_color, device=device,
+                     site='api.background')
     if arr.ndim not in (1, 2) or arr.shape[-1] != 3:
         raise ValueError(
             'background_color must be an RGB triple [3] or per-batch '
@@ -129,18 +135,19 @@ def _render_pass(faces, textures, background, render_size, pool,
 
     rgb, alpha, depth = rasterize_core(settings, faces, textures, background)
 
-    if return_rgb:
-        rgb = torch.flip(rgb.permute(0, 3, 1, 2), dims=[2])
-        if pool:
-            rgb = _avg_pool_2x2(rgb)
-    if return_alpha:
-        alpha = torch.flip(alpha, dims=[1])
-        if pool:
-            alpha = _avg_pool_2x2(alpha)
-    if return_depth:
-        depth = torch.flip(depth, dims=[1])
-        if pool:
-            depth = _avg_pool_2x2(depth)
+    with tracing.span('raster.post'):
+        if return_rgb:
+            rgb = torch.flip(rgb.permute(0, 3, 1, 2), dims=[2])
+            if pool:
+                rgb = _avg_pool_2x2(rgb)
+        if return_alpha:
+            alpha = torch.flip(alpha, dims=[1])
+            if pool:
+                alpha = _avg_pool_2x2(alpha)
+        if return_depth:
+            depth = torch.flip(depth, dims=[1])
+            if pool:
+                depth = _avg_pool_2x2(depth)
 
     return {
         'rgb': rgb if return_rgb else None,
@@ -152,11 +159,12 @@ def _render_pass(faces, textures, background, render_size, pool,
 def _prepare(faces, textures, return_rgb):
     """faces/textures as f32 tensors on faces' device, validated; a
     [bs, nf, 1, 1, 1, 3] zero placeholder when rgb is not drawn."""
-    faces = _as_tensor(faces)
+    faces = _as_tensor(faces, site='api.faces')
     if return_rgb:
         if textures is None:
             raise ValueError('textures are required when return_rgb=True')
-        textures = _as_tensor(textures, device=faces.device)
+        textures = _as_tensor(textures, device=faces.device,
+                              site='api.textures')
         _check_inputs(faces, textures, True)
     else:
         _check_inputs(faces, None, False)
@@ -196,25 +204,26 @@ def rasterize_rgbad(
     Returns dict(rgb=[bs,3,H,W], alpha=[bs,H,W], depth=[bs,H,W]) with None
     for unrequested channels.
     """
-    faces, textures = _prepare(faces, textures, return_rgb)
-    background = _background_array(background_color, faces.device)
-    common = (near, far, eps, return_rgb, return_alpha, return_depth,
-              face_group)
-    if anti_aliasing == 'approx':
-        with torch.no_grad():
-            val = _render_pass(faces, textures, background, image_size * 2,
-                               True, *common)
-        if not (torch.is_grad_enabled()
-                and (faces.requires_grad or textures.requires_grad
-                     or background.requires_grad)):
-            return val
-        grad = _render_pass(faces, textures, background, image_size, False,
-                            *common)
-        return {k: None if val[k] is None
-                else _ValueOfGradTo.apply(val[k], grad[k]) for k in val}
-    render_size = image_size * 2 if anti_aliasing else image_size
-    return _render_pass(faces, textures, background, render_size,
-                        bool(anti_aliasing), *common)
+    with tracing.span('raster'):
+        faces, textures = _prepare(faces, textures, return_rgb)
+        background = _background_array(background_color, faces.device)
+        common = (near, far, eps, return_rgb, return_alpha, return_depth,
+                  face_group)
+        if anti_aliasing == 'approx':
+            with torch.no_grad():
+                val = _render_pass(faces, textures, background,
+                                   image_size * 2, True, *common)
+            if not (torch.is_grad_enabled()
+                    and (faces.requires_grad or textures.requires_grad
+                         or background.requires_grad)):
+                return val
+            grad = _render_pass(faces, textures, background, image_size,
+                                False, *common)
+            return {k: None if val[k] is None
+                    else _ValueOfGradTo.apply(val[k], grad[k]) for k in val}
+        render_size = image_size * 2 if anti_aliasing else image_size
+        return _render_pass(faces, textures, background, render_size,
+                            bool(anti_aliasing), *common)
 
 
 def rasterize(

@@ -16,7 +16,8 @@ the card:
 Each wrapper sends a CPU tensor to its plain PyTorch version
 (``insweep_plain``, ``outsweep_plain``, ``face_reduce_plain``) and a CUDA
 tensor to its kernel, which it launches or raises; any other device raises.
-``LAUNCHES`` counts kernel launches per kernel, never plain-version calls.
+``tracing.COUNTS`` counts each kernel's launches (``launch.<kernel>``),
+never plain-version calls.
 
 The sweeps read the forward's maps as the CUDA forward writes them: ``xy``
 ``[bs, 6, is, is]`` (the winner's NDC x0 y0 x1 y1 x2 y2), ``face_index_map``
@@ -32,13 +33,10 @@ import functools
 
 import torch
 
-from neural_renderer_torch import _build
+from neural_renderer_torch import _build, tracing
 from neural_renderer_torch.rasterize import backward as bwd
 from neural_renderer_torch.rasterize import texture as tex
 from neural_renderer_torch.rasterize.config import on_card
-
-# Kernel launches since import (or since a caller reset them), per kernel.
-LAUNCHES = {'insweep': 0, 'outsweep': 0, 'face_reduce': 0}
 
 
 @functools.cache
@@ -207,7 +205,7 @@ def _launch_sweep(name, settings, xy, face_index_map, rgb, grad_rgb,
             _ptr(grad_rgb), _strides(grad_rgb), _ptr(ga), bs, is_,
             settings.eps, out.data_ptr(), out.stride(0), *extra, _stream(xy))
     _build.raise_on_error(lib, rc, name)
-    LAUNCHES[name] += 1
+    tracing.COUNTS['launch.' + name] += 1
     return out
 
 
@@ -391,5 +389,5 @@ def face_reduce(stack, face_index_map, nf, ts=0, bins=None):
             bs, nf, is_, C, ts, partial.data_ptr(), out.data_ptr(),
             _stream(stack))
     _build.raise_on_error(lib, rc, 'face_reduce')
-    LAUNCHES['face_reduce'] += 1
+    tracing.COUNTS['launch.face_reduce'] += 1
     return out

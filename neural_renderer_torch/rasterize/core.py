@@ -26,6 +26,7 @@ flip / anti-aliasing (``rasterize.py:953-969``).
 import torch
 import torch.distributed as dist
 
+from neural_renderer_torch import tracing
 from neural_renderer_torch._collectives import all_reduce
 from neural_renderer_torch.rasterize import backward as bwd
 from neural_renderer_torch.rasterize import backward_cuda
@@ -96,31 +97,34 @@ def _forward_all(settings, faces, textures, background):
                                       textures if fuse_rgb else None)
     if settings.return_rgb and not fuse_rgb:
         # sampled from the local winners, before a face-group merge
-        out['rgb'] = tex.sample_textures(
-            settings, textures, out['face_index_map'],
-            out['z'].permute(0, 2, 3, 1),
-            out['weights'].permute(0, 2, 3, 1),
-            out['depth_map']).permute(0, 3, 1, 2)
+        with tracing.span('raster.shade'):
+            out['rgb'] = tex.sample_textures(
+                settings, textures, out['face_index_map'],
+                out['z'].permute(0, 2, 3, 1),
+                out['weights'].permute(0, 2, 3, 1),
+                out['depth_map']).permute(0, 3, 1, 2)
     if settings.face_group is not None:
-        out = _merge_face_group(settings, out, faces.shape[1])
-    # a pixel won by another rank's face is covered too
-    covered = out.get('global_index_map', out['face_index_map']) >= 0
-    dev = faces.device
+        with tracing.span('raster.merge'):
+            out = _merge_face_group(settings, out, faces.shape[1])
+    with tracing.span('raster.composite'):
+        # a pixel won by another rank's face is covered too
+        covered = out.get('global_index_map', out['face_index_map']) >= 0
+        dev = faces.device
 
-    if settings.return_rgb:
-        rgb_map = out['rgb'].permute(0, 2, 3, 1)
-        # background composite (rasterize.py:451-465)
-        bg = (background[None, None, None, :] if background.ndim == 1
-              else background[:, None, None, :])
-        mask = covered.to(torch.float32)[..., None]
-        rgb_map = rgb_map * mask + (1.0 - mask) * bg
-    else:
-        rgb_map = torch.zeros(1, dtype=torch.float32, device=dev)
+        if settings.return_rgb:
+            rgb_map = out['rgb'].permute(0, 2, 3, 1)
+            # background composite (rasterize.py:451-465)
+            bg = (background[None, None, None, :] if background.ndim == 1
+                  else background[:, None, None, :])
+            mask = covered.to(torch.float32)[..., None]
+            rgb_map = rgb_map * mask + (1.0 - mask) * bg
+        else:
+            rgb_map = torch.zeros(1, dtype=torch.float32, device=dev)
 
-    alpha = (covered.to(torch.float32) if settings.return_alpha
-             else torch.zeros(1, dtype=torch.float32, device=dev))
-    depth = (out['depth_map'] if settings.return_depth
-             else torch.zeros(1, dtype=torch.float32, device=dev))
+        alpha = (covered.to(torch.float32) if settings.return_alpha
+                 else torch.zeros(1, dtype=torch.float32, device=dev))
+        depth = (out['depth_map'] if settings.return_depth
+                 else torch.zeros(1, dtype=torch.float32, device=dev))
     return rgb_map, alpha, depth, out
 
 
@@ -169,18 +173,21 @@ def channel_stack(settings, maps, g_rgb, g_alpha, g_depth, k5, k7, k6_ts):
     stack = torch.empty((bs, C, is_, is_), dtype=torch.float32,
                         device=fim.device)
     if k5:
-        _k5_stack(settings, stack[:, :12], cover, maps['xy'], maps['rgb'],
-                  g_rgb, g_alpha)
+        with tracing.span('backward.k5'):
+            _k5_stack(settings, stack[:, :12], cover, maps['xy'],
+                      maps['rgb'], g_rgb, g_alpha)
     if k7:
         off = 12 if k5 else 0
-        stack[:, off:off + 9] = _k7_channels(
-            settings, fim >= 0, maps['xy'], maps['z'], maps['weights'],
-            maps['depth_map'], g_depth)
+        with tracing.span('backward.k7'):
+            stack[:, off:off + 9] = _k7_channels(
+                settings, fim >= 0, maps['xy'], maps['z'], maps['weights'],
+                maps['depth_map'], g_depth)
     if k6_ts:
-        stack[:, C - naux:] = tex.texture_cell_factors(
-            settings, fim, maps['z'].permute(0, 2, 3, 1),
-            maps['weights'].permute(0, 2, 3, 1), maps['depth_map'],
-            g_rgb.permute(0, 3, 1, 2), k6_ts)
+        with tracing.span('backward.k6'):
+            stack[:, C - naux:] = tex.texture_cell_factors(
+                settings, fim, maps['z'].permute(0, 2, 3, 1),
+                maps['weights'].permute(0, 2, 3, 1), maps['depth_map'],
+                g_rgb.permute(0, 3, 1, 2), k6_ts)
     return stack
 
 
@@ -216,6 +223,11 @@ class RasterizeCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_rgb, g_alpha, g_depth):
+        with tracing.span('backward'):
+            return RasterizeCore._backward(ctx, g_rgb, g_alpha, g_depth)
+
+    @staticmethod
+    def _backward(ctx, g_rgb, g_alpha, g_depth):
         s = ctx.settings
         saved = ctx.saved_tensors
         maps = dict(zip(_SAVED, saved))
@@ -236,15 +248,17 @@ class RasterizeCore(torch.autograd.Function):
         if k5 or k7 or k6_ts:
             stack = channel_stack(s, maps, g_rgb, g_alpha, g_depth, k5, k7,
                                   k6_ts)
-            sums = backward_cuda.face_reduce(stack, fim, nf, k6_ts, bins)
+            with tracing.span('backward.reduce'):
+                sums = backward_cuda.face_reduce(stack, fim, nf, k6_ts, bins)
 
         grad_faces = grad_textures = grad_bg = None
         if need_faces:
             grad_faces = torch.zeros(face_shape, dtype=torch.float32,
                                      device=dev)
             if k5:
-                grad_faces = grad_faces + bwd.scatter_pixel_channels(
-                    sums[:, :12], bs, nf)
+                with tracing.span('backward.scatter'):
+                    grad_faces = grad_faces + bwd.scatter_pixel_channels(
+                        sums[:, :12], bs, nf)
             if k7:
                 off = 12 if k5 else 0
                 grad_faces = grad_faces + sums[:, off:off + 9].reshape(
@@ -253,10 +267,11 @@ class RasterizeCore(torch.autograd.Function):
             if k6_ts:
                 grad_textures = sums[:, -ts ** 3 * 3:].reshape(tex_shape)
             elif s.return_rgb:
-                grad_textures = tex.grad_textures(
-                    s, fim, maps['z'].permute(0, 2, 3, 1),
-                    maps['weights'].permute(0, 2, 3, 1), maps['depth_map'],
-                    g_rgb, tex_shape)
+                with tracing.span('backward.k6'):
+                    grad_textures = tex.grad_textures(
+                        s, fim, maps['z'].permute(0, 2, 3, 1),
+                        maps['weights'].permute(0, 2, 3, 1),
+                        maps['depth_map'], g_rgb, tex_shape)
             else:
                 grad_textures = torch.zeros(tex_shape, dtype=torch.float32,
                                             device=dev)

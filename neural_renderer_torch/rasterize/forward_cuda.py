@@ -52,14 +52,10 @@ import functools
 
 import torch
 
-from neural_renderer_torch import _build
+from neural_renderer_torch import _build, tracing
 from neural_renderer_torch.rasterize import forward_dense, geometry
 from neural_renderer_torch.rasterize import texture as tex
 from neural_renderer_torch.rasterize.config import on_card
-
-# Kernel launches since import (or since a caller reset them), per kernel:
-# one per launch of the CUDA kernel, never for the plain version.
-LAUNCHES = {'forward_shaded': 0, 'forward_index': 0, 'bin_faces': 0}
 
 # faces per chunk of the JAX package's Pallas forward (forward_pallas.py:94);
 # the port's kernels have no chunks, the scene counters count in them
@@ -330,16 +326,22 @@ def bin_setup(settings, faces, tile, records=('rec',)):
     plus ``rec`` (``_face_records``) and ``irec`` (``_index_records``) as
     ``records`` asks.
 
-    A CUDA tensor runs the kernels of ``csrc/bin_faces.cu`` (counted once in
-    ``LAUNCHES['bin_faces']``) or raises; the pair total is read back to the
-    host once, to size ``ids`` and ``order``.  A CPU tensor runs
-    ``bin_setup_plain``.
+    A CUDA tensor runs the kernels of ``csrc/bin_faces.cu`` (counted once as
+    ``tracing.COUNTS['launch.bin_faces']``) or raises; the pair total is
+    read back to the host once (``wait.read.bin_total``), to size ``ids``
+    and ``order``.  A CPU tensor runs ``bin_setup_plain``.
     """
     unknown = set(records) - {'rec', 'irec'}
     if unknown:
         raise ValueError(f'unknown records {sorted(unknown)}')
     if not on_card(faces):
         return bin_setup_plain(settings, faces, tile, records)
+    with tracing.span('raster.bin_setup'):
+        return _bin_setup(settings, faces, tile, records)
+
+
+def _bin_setup(settings, faces, tile, records):
+    """``bin_setup`` on the card."""
     faces = faces.contiguous()
     bs, nf = faces.shape[:2]
     nseg = bs * nf
@@ -371,7 +373,8 @@ def bin_setup(settings, faces, tile, records=('rec',)):
             box.data_ptr(), mask.data_ptr(), scan.data_ptr(),
             temp.data_ptr(), temp_bytes, stream)
         _build.raise_on_error(lib, rc, 'bin_faces count')
-        total = int(scan[nseg])             # the forward's one host sync
+        with tracing.wait('read', 'bin_total'):  # the forward's one sync
+            total = int(scan[nseg])
         if total >= 2 ** 31:
             raise ValueError(
                 f'{total} (tile, face) pairs overflow int32 offsets')
@@ -381,7 +384,7 @@ def bin_setup(settings, faces, tile, records=('rec',)):
             tile, total, out['ids'].data_ptr(), out['order'].data_ptr(),
             out['first'].data_ptr(), out['start'].data_ptr(), stream)
         _build.raise_on_error(lib, rc, 'bin_faces fill')
-    LAUNCHES['bin_faces'] += 1
+    tracing.COUNTS['launch.bin_faces'] += 1
     return out
 
 
@@ -446,7 +449,8 @@ def forward_shaded(settings, faces, textures=None):
     """
     _check(settings, faces, textures)
     if not on_card(faces):
-        return forward_shaded_plain(settings, faces, textures)
+        with tracing.span('raster.shade'):
+            return forward_shaded_plain(settings, faces, textures)
     ts = 0 if textures is None else textures.shape[2]
     if textures is not None and not 2 <= ts <= MAX_FUSED_TS:
         raise ValueError(f'the kernel shades 2 <= ts <= {MAX_FUSED_TS}; '
@@ -464,7 +468,8 @@ def forward_shaded(settings, faces, textures=None):
     if textures is not None:
         out['rgb'] = empty(bs, 3, is_, is_)
     out['bins'] = _launch_binned(
-        _kernel(), 'forward_shaded', 'rec', settings, faces, [_ptr(texc)],
+        _kernel(), 'forward_shaded', 'raster.shade', 'rec', settings, faces,
+        [_ptr(texc)],
         [ts, settings.near, settings.far, ts - 1 - settings.eps],
         [out['face_index_map'], out['depth_map'], out['weights'], out['xy'],
          out['z'], out.get('rgb')])
@@ -475,27 +480,27 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_binned(lib, name, record, settings, faces, inputs, scalars,
-                   outputs):
+def _launch_binned(lib, name, stage, record, settings, faces, inputs,
+                   scalars, outputs):
     """Launch kernel ``name`` of ``lib`` on the binned tiles of ``faces``:
     ``nr_<name>(records, start, ids, *inputs, bs, nf, is, *scalars,
     *outputs, stream)``, with the per-face records (``record``: 'rec' or
     'irec') and the CSR tile lists made on the card by ``bin_setup`` at the
-    kernel's tile size.  Raises if a launch fails; counts the kernel in
-    ``LAUNCHES`` otherwise.  Returns the tile lists: dict(tile, start, ids,
-    order, first) of ``bin_faces``."""
+    kernel's tile size; the launch is the span ``stage``.  Raises if a
+    launch fails; counts ``launch.<name>`` otherwise.  Returns the tile
+    lists: dict(tile, start, ids, order, first) of ``bin_faces``."""
     bs, nf = faces.shape[:2]
     bins = bin_setup(settings, faces, getattr(lib, f'nr_{name}_tile')(),
                      records=(record,))
     rec = bins.pop(record)
-    with torch.cuda.device(faces.device):
+    with tracing.span(stage), torch.cuda.device(faces.device):
         rc = getattr(lib, f'nr_{name}')(
             rec.data_ptr(), bins['start'].data_ptr(), bins['ids'].data_ptr(),
             *inputs, bs, nf, settings.image_size, *scalars,
             *map(_ptr, outputs),
             torch.cuda.current_stream(faces.device).cuda_stream)
     _build.raise_on_error(lib, rc, name)
-    LAUNCHES[name] += 1
+    tracing.COUNTS['launch.' + name] += 1
     return bins
 
 
@@ -538,8 +543,9 @@ def forward_face_index_map(settings, faces):
     shape = (faces.shape[0], settings.image_size, settings.image_size)
     idx = torch.empty(shape, dtype=torch.int32, device=faces.device)
     depth = torch.empty(shape, dtype=torch.float32, device=faces.device)
-    _launch_binned(_index_kernel(), 'forward_index', 'irec', settings, faces,
-                   [], [settings.near, settings.far], [idx, depth])
+    _launch_binned(_index_kernel(), 'forward_index', 'raster.index', 'irec',
+                   settings, faces, [], [settings.near, settings.far],
+                   [idx, depth])
     return idx, depth
 
 

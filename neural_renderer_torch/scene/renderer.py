@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from neural_renderer_torch import tracing
 from neural_renderer_torch.ops.lighting import lighting
 from neural_renderer_torch.ops.transforms import look, look_at, perspective
 from neural_renderer_torch.ops.vertices_to_faces import (
@@ -95,61 +96,77 @@ class Renderer(object):
         """vertices and textures as f32 tensors on the vertices' device;
         faces as a tensor (a caller's tensor is passed on as it is, so the
         vertex scatter keeps its sort, ``ops/vertices_to_faces.py``)."""
-        vertices = _as_tensor(vertices)
+        vertices = _as_tensor(vertices, site='renderer.vertices')
         if not isinstance(faces, torch.Tensor):
-            faces = _as_tensor(faces, torch.int64, vertices.device)
+            faces = _as_tensor(faces, torch.int64, vertices.device,
+                               site='renderer.faces')
         if textures is not None:
-            textures = _as_tensor(textures, device=vertices.device)
+            textures = _as_tensor(textures, device=vertices.device,
+                                  site='renderer.textures')
         return vertices, faces, textures
 
     # ------------------------------------------------------------------
+    def _camera_faces(self, vertices, faces):
+        """The camera transform of the vertices, gathered per face (the
+        scene of the untextured entry points)."""
+        with tracing.span('scene'):
+            vertices, faces, _ = self._mesh(vertices, faces)
+            with tracing.span('scene.camera'):
+                vertices = self._transform(vertices)
+            return vertices_to_faces(vertices, faces, self.face_group,
+                                     self.fill_back)
+
     def render_silhouettes(self, vertices, faces):
-        vertices, faces, _ = self._mesh(vertices, faces)
-        face_coords = vertices_to_faces(self._transform(vertices), faces,
-                                        self.face_group, self.fill_back)
-        return rasterize_silhouettes(face_coords, self.image_size,
-                                     self.anti_aliasing,
-                                     face_group=self.face_group)
+        with tracing.span('render_silhouettes'):
+            return rasterize_silhouettes(
+                self._camera_faces(vertices, faces), self.image_size,
+                self.anti_aliasing, face_group=self.face_group)
 
     def render_depth(self, vertices, faces):
-        vertices, faces, _ = self._mesh(vertices, faces)
-        face_coords = vertices_to_faces(self._transform(vertices), faces,
-                                        self.face_group, self.fill_back)
-        return rasterize_depth(face_coords, self.image_size,
-                               self.anti_aliasing, face_group=self.face_group)
+        with tracing.span('render_depth'):
+            return rasterize_depth(
+                self._camera_faces(vertices, faces), self.image_size,
+                self.anti_aliasing, face_group=self.face_group)
 
     def _lit_faces(self, vertices, faces, textures):
         """fill_back, lighting on world-space face coords
         (renderer.py:82-90), then the camera transform of the gathered
         coords (pointwise, so exact)."""
-        vertices, faces, textures = self._mesh(vertices, faces, textures)
-        if self.fill_back:
-            textures = self._fill_back_textures(textures)
-        faces_lighting = vertices_to_faces(vertices, faces, self.face_group,
-                                           self.fill_back)
-        textures = lighting(
-            faces_lighting,
-            textures,
-            self.light_intensity_ambient,
-            self.light_intensity_directional,
-            self.light_color_ambient,
-            self.light_color_directional,
-            self.light_direction)
-        return self._transform_faces(faces_lighting), textures
+        with tracing.span('scene'):
+            vertices, faces, textures = self._mesh(vertices, faces, textures)
+            with tracing.span('scene.lighting'):
+                if self.fill_back:
+                    textures = self._fill_back_textures(textures)
+                faces_lighting = vertices_to_faces(
+                    vertices, faces, self.face_group, self.fill_back)
+                textures = lighting(
+                    faces_lighting,
+                    textures,
+                    self.light_intensity_ambient,
+                    self.light_intensity_directional,
+                    self.light_color_ambient,
+                    self.light_color_directional,
+                    self.light_direction)
+            with tracing.span('scene.camera'):
+                return self._transform_faces(faces_lighting), textures
 
     def render(self, vertices, faces, textures):
-        face_coords, textures = self._lit_faces(vertices, faces, textures)
-        return rasterize(
-            face_coords, textures, self.image_size, self.anti_aliasing,
-            self.near, self.far, self.rasterizer_eps, self.background_color,
-            self.face_group)
+        with tracing.span('render'):
+            face_coords, textures = self._lit_faces(vertices, faces,
+                                                    textures)
+            return rasterize(
+                face_coords, textures, self.image_size, self.anti_aliasing,
+                self.near, self.far, self.rasterizer_eps,
+                self.background_color, self.face_group)
 
     def render_rgbad(self, vertices, faces, textures):
         """All three channels in one pass (no reference Renderer method, but
         rasterize_rgbad exists there; exposed for the batched multi-view
         workload)."""
-        face_coords, textures = self._lit_faces(vertices, faces, textures)
-        return rasterize_rgbad(
-            face_coords, textures, self.image_size, self.anti_aliasing,
-            self.near, self.far, self.rasterizer_eps, self.background_color,
-            True, True, True, self.face_group)
+        with tracing.span('render_rgbad'):
+            face_coords, textures = self._lit_faces(vertices, faces,
+                                                    textures)
+            return rasterize_rgbad(
+                face_coords, textures, self.image_size, self.anti_aliasing,
+                self.near, self.far, self.rasterizer_eps,
+                self.background_color, True, True, True, self.face_group)

@@ -90,8 +90,8 @@ def tune(renderer, vertices, faces, eyes=None, margin=1.25, textures=None,
     or ``{}`` with ``measure=True``.  ``renderer.eye`` is restored.
     """
     del textures, measure_iters
-    vertices = _as_tensor(vertices)
-    faces = _as_tensor(faces, torch.int64, vertices.device)
+    vertices = _as_tensor(vertices, site='tune.vertices')
+    faces = _as_tensor(faces, torch.int64, vertices.device, site='tune.faces')
     if vertices.ndim == 2:
         vertices = vertices[None]
     if faces.ndim == 2:

@@ -30,6 +30,7 @@ import torch
 import neural_renderer_torch as nt
 import neural_renderer_tpu as nr
 import utils
+from neural_renderer_torch import tracing
 from neural_renderer_torch.rasterize import backward as tbwd
 from neural_renderer_torch.rasterize import backward_cuda, forward_cuda
 from neural_renderer_torch.rasterize import geometry as tgeo
@@ -136,7 +137,7 @@ def test_wrappers_route_cpu_to_plain(scene):
     and the out-sweep's accumulate adds to the in-sweep in place."""
     ts_, _ = _settings('rgb+alpha')
     sc = scene
-    before = dict(backward_cuda.LAUNCHES)
+    before = tracing.counts()
     want = (_port_k5(ts_, sc, backward_cuda.insweep_plain)
             + _port_k5(ts_, sc, backward_cuda.outsweep_plain))
     stack = torch.zeros((2, 15, IS, IS))
@@ -150,7 +151,7 @@ def test_wrappers_route_cpu_to_plain(scene):
     np.testing.assert_array_equal(sums.numpy(), backward_cuda.
                                   face_reduce_plain(stack, torch.as_tensor(
                                       sc['fim']), 4928).numpy())
-    assert backward_cuda.LAUNCHES == before
+    assert tracing.counts() == before
 
 
 @pytest.mark.parametrize('ts', [2, 3, 4])

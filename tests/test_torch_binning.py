@@ -43,6 +43,7 @@ import torch
 
 import neural_renderer_torch as nt
 import utils
+from neural_renderer_torch import tracing
 from neural_renderer_torch.rasterize import forward_cuda, geometry
 from neural_renderer_torch.rasterize.config import RasterizeSettings as TSet
 from neural_renderer_tpu.rasterize import forward_pallas
@@ -235,9 +236,9 @@ def test_index_records_hold_face_records_and_geometry(name, size):
 def test_bin_setup_on_cpu_runs_plain_and_launches_nothing():
     fc = torch.as_tensor(_scene('teapot', 64))
     s = TSet(image_size=64)
-    before = dict(forward_cuda.LAUNCHES)
+    before = tracing.counts()
     got = forward_cuda.bin_setup(s, fc, 16, records=('rec', 'irec'))
-    assert forward_cuda.LAUNCHES == before
+    assert tracing.counts() == before
     assert set(got) == {'tile', 'start', 'ids', 'order', 'first', 'rec',
                         'irec'}
     assert got['tile'] == 16

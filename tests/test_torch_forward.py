@@ -23,6 +23,7 @@ import torch
 
 import neural_renderer_torch as nt
 import utils
+from neural_renderer_torch import tracing
 from neural_renderer_torch.rasterize import (forward_cuda, forward_dense,
                                              geometry)
 from neural_renderer_torch.rasterize.config import RasterizeSettings as TSet
@@ -149,8 +150,8 @@ def test_kernel_wrapper_routes_cpu_to_plain():
     nothing."""
     fc, tx = _scene(2)
     s = TSet(image_size=IS, eps=1e-3)
-    before = dict(forward_cuda.LAUNCHES)
+    before = tracing.counts()
     got = forward_cuda.forward_shaded(s, torch.as_tensor(fc),
                                       torch.as_tensor(tx))
-    assert forward_cuda.LAUNCHES == before
+    assert tracing.counts() == before
     _assert_maps({k: v.numpy() for k, v in got.items()}, _plain(fc, tx))

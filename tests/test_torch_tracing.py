@@ -1,0 +1,140 @@
+"""The port's spans and counters (``neural_renderer_torch/tracing.py``) on
+the CPU: each entry point's spans under ``torch.profiler`` with their
+parents, the shared null context with no profiler running, and the counts
+a plain CPU render leaves (none)."""
+
+import os
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import neural_renderer_torch as nt
+import utils
+from neural_renderer_torch import tracing
+
+TEAPOT = os.path.join(utils.DATA_DIR, 'teapot.obj')
+
+SCENE = {('nr.scene', None), ('nr.scene.lighting', 'nr.scene'),
+         ('nr.scene.camera', 'nr.scene')}
+RASTER = {('nr.raster.shade', 'nr.raster'),
+          ('nr.raster.composite', 'nr.raster'),
+          ('nr.raster.post', 'nr.raster')}
+# the rasterizer's backward and the vertex gather's, each a root: the
+# backward runs outside the entry point's span
+BACKWARD = {('nr.backward', None), ('nr.backward.k5', 'nr.backward'),
+            ('nr.backward.k6', 'nr.backward'),
+            ('nr.backward.reduce', 'nr.backward'),
+            ('nr.backward.scatter', 'nr.backward')}
+
+
+def _under(root, pairs):
+    """``pairs`` with the parentless ones hung under ``root``."""
+    return {(n, root if p is None else p) for n, p in pairs}
+
+
+# entry point -> (its (span, parent span) pairs, whether it draws textures)
+WANT = {
+    'render': (
+        {('nr.render', None), ('nr.raster', 'nr.render')}
+        | _under('nr.render', SCENE) | RASTER | BACKWARD, True),
+    'render_rgbad': (
+        {('nr.render_rgbad', None), ('nr.raster', 'nr.render_rgbad')}
+        | _under('nr.render_rgbad', SCENE) | RASTER, True),
+    'render_silhouettes': (
+        {('nr.render_silhouettes', None),
+         ('nr.scene', 'nr.render_silhouettes'),
+         ('nr.scene.camera', 'nr.scene'),
+         ('nr.raster', 'nr.render_silhouettes')} | RASTER, False),
+    'render_depth': (
+        {('nr.render_depth', None), ('nr.scene', 'nr.render_depth'),
+         ('nr.scene.camera', 'nr.scene'),
+         ('nr.raster', 'nr.render_depth'), ('nr.backward', None),
+         ('nr.backward.k7', 'nr.backward'),
+         ('nr.backward.reduce', 'nr.backward'),
+         ('nr.backward.scatter', 'nr.backward')} | RASTER, False),
+}
+# the entry points run with their backward
+BACKWARD_OF = ('render', 'render_depth')
+
+
+@pytest.fixture(scope='module')
+def scene():
+    v, f = nt.load_obj(TEAPOT)
+    v = torch.as_tensor(v)[None]
+    f = torch.as_tensor(f, dtype=torch.int64)[None]
+    tx = torch.rand((1, f.shape[1], 2, 2, 2, 3),
+                    generator=torch.Generator().manual_seed(5))
+    r = nt.Renderer()
+    r.image_size = 16
+    r.eye = torch.tensor([0.0, 0.5, -2.7])
+    return r, v, f, tx
+
+
+def _call(entry, scene, backward):
+    r, v, f, tx = scene
+    v = v.clone().requires_grad_(backward)
+    tx = tx.clone().requires_grad_(backward)
+    textured = WANT[entry][1]
+    out = getattr(r, entry)(*((v, f, tx) if textured else (v, f)))
+    if isinstance(out, dict):
+        out = out['rgb']
+    if backward:
+        torch.autograd.grad(out.sum(), [v, tx] if textured else [v])
+
+
+def _nr_parent(ev):
+    p = ev.cpu_parent
+    while p is not None and not p.name.startswith(tracing.PREFIX):
+        p = p.cpu_parent
+    return None if p is None else p.name
+
+
+@pytest.mark.parametrize('entry', sorted(WANT))
+def test_entry_points_show_their_spans_and_parents(scene, entry):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _call(entry, scene, entry in BACKWARD_OF)
+    got = {(ev.name, _nr_parent(ev)) for ev in prof.events()
+           if ev.name.startswith(tracing.PREFIX)}
+    assert got == WANT[entry][0]
+
+
+def test_no_profiler_no_record_function(scene, monkeypatch):
+    def refuse(name):
+        raise AssertionError(f'record_function({name!r}) with no profiler')
+
+    monkeypatch.setattr(torch.profiler, 'record_function', refuse)
+    assert tracing.span('render') is tracing.span('raster') is tracing._OFF
+    _call('render', scene, True)
+
+
+def test_a_cpu_render_counts_nothing(scene):
+    tracing.reset()
+    for entry in sorted(WANT):
+        _call(entry, scene, entry in BACKWARD_OF)
+    assert tracing.counts() == {}
+
+
+def test_waits_are_counted_and_marked():
+    tracing.reset()
+    cpu, card = torch.device('cpu'), torch.device('cuda')
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.wait('read', 'probe'):
+            pass
+        # a list or a CPU tensor put on the card is a copy from the host
+        with tracing.host_copy('probe', [1.0], card):
+            pass
+        with tracing.host_copy('probe', torch.zeros(1), card):
+            pass
+        # nothing leaves the host here
+        assert tracing.host_copy('probe', [1.0], cpu) is tracing._OFF
+    snapshot = tracing.counts()
+    assert snapshot == {'wait.read.probe': 1, 'wait.copy.probe': 2}
+    snapshot['wait.read.probe'] = 9
+    assert tracing.counts()['wait.read.probe'] == 1
+    names = [ev.name for ev in prof.events()
+             if ev.name.startswith(tracing.PREFIX)]
+    assert sorted(names) == ['nr.wait.copy.probe', 'nr.wait.copy.probe',
+                             'nr.wait.read.probe']
+    tracing.reset()
+    assert tracing.counts() == {}

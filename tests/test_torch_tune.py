@@ -31,6 +31,7 @@ import torch
 import neural_renderer_torch as nt
 import neural_renderer_tpu as nr
 import utils
+from neural_renderer_torch import tracing
 from neural_renderer_torch.rasterize import backward as tbwd
 from neural_renderer_torch.rasterize import forward_cuda
 from neural_renderer_torch.rasterize.config import RasterizeSettings as TSet
@@ -107,9 +108,9 @@ def _port_fim(fc, size):
     ('teapot', 128)])
 def test_index_map_matches_jax(scenes, name, size):
     fc = scenes[name]
-    before = dict(forward_cuda.LAUNCHES)
+    before = tracing.counts()
     idx, depth = (t.numpy() for t in _port_fim(fc, size))
-    assert forward_cuda.LAUNCHES == before
+    assert tracing.counts() == before
     js = JSet(image_size=size, runtime_checks=False,
               faces_per_tile_cap=fc.shape[1])
     with jax.disable_jit():
