@@ -4,9 +4,10 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero; progress goes to stdout):
   1. the card: ``torch.cuda.is_available()``, name and power limit;
-  2. build the CUDA kernels from ``neural_renderer_torch/csrc`` (six
+  2. build the CUDA kernels from ``neural_renderer_torch/csrc`` (seven
      sources: the five TPU kernels' counterparts, the forward's setup and
-     binning and the segmented sum; one nvcc each, all started together)
+     binning, the segmented sum and the output pass; one nvcc each, all
+     started together)
      and print ptxas' register and shared-memory report;
   3. the forward kernel against its plain PyTorch version on the card,
      inputs from ``--seed``: random 64^2 scenes (no textures, ts 2/3/4) and
@@ -158,16 +159,25 @@ Phases (any failure exits non-zero; progress goes to stdout):
      (phase 3's rule), both timed; the index kernel against its plain
      version on each of the 8 scenes ``tune`` gives it (bs 64, 1024^2,
      phase 11's rule), timed; the binning at this size against its plain
-     version, timed, with its (tile, chunk) cells and the sync's wait.
+     version, timed, with its (tile, chunk) cells and the sync's wait;
+ 22. the output pass's kernel (``csrc/composite_pool.cu``) against its
+     plain version, bit for bit: adversarial maps in every layout it takes,
+     pooled and not, each output alone and all three, a [3] and a [bs, 3]
+     background, at shapes on and off its 16-byte path; BASELINE config
+     5's real maps (1024^2 pooled, 512^2 not) and the main path's (bs 32,
+     512^2, rgb only); timed alone with CUDA events around bare launches,
+     as a call and against the plain version, with its byte bound; one
+     config-5 call launches it once (phase 7: a training step never).
 
 Every profiler window is padded with idle host time at both ends
 (``_profile``); a window that caught none of a kernel's launches is logged
 and profiled again (``_kernel_device_ms``).
 
 The last stdout line is the JSON device record.  The line before it lists
-seven kernels: the five TPU kernels' counterparts, the setup and binning
-(``bin_faces``) and the segmented sum (``segment_sum``), the last two not TPU
-kernels (the JAX package does both in XLA).  Each has its launches on its
+eight kernels: the five TPU kernels' counterparts, the setup and binning
+(``bin_faces``), the segmented sum (``segment_sum``) and the output pass
+(``composite_pool``), the last three not TPU kernels (the JAX package does
+them in XLA).  Each has its launches on its
 path (phase 7 for the training kernels, phase 11 for the index kernel) and
 per step, on each example's run (phase 17), on phase 19's runs (the
 dataset renderer, the model's training step and its ``tune``) and on the
@@ -211,7 +221,8 @@ from neural_renderer_torch.io.image import imread
 from neural_renderer_torch.ops.vertices_to_faces import vertices_to_faces
 from neural_renderer_torch.ops import segments
 from neural_renderer_torch.rasterize import backward as bwd
-from neural_renderer_torch.rasterize import api, backward_cuda, core
+from neural_renderer_torch.rasterize import backward_cuda, core
+from neural_renderer_torch.rasterize import composite_pool
 from neural_renderer_torch.rasterize import forward_cuda
 from neural_renderer_torch.rasterize import texture as tex
 from neural_renderer_torch.rasterize.config import RasterizeSettings
@@ -226,13 +237,13 @@ RASTER = 2 * OUT_SIZE
 AZIMUTHS = [float(a) for a in range(0, 360, 45)]
 DISTANCE, ELEVATION = 2.732, 30.0
 KERNELS = ('forward_shaded', 'forward_index', 'backward_sweeps',
-           'face_reduce', 'bin_faces', 'segment_sum')
+           'face_reduce', 'bin_faces', 'segment_sum', 'composite_pool')
 # the kernels a training step launches (the index kernel serves tune)
 TRAINING_KERNELS = ('forward_shaded', 'insweep', 'outsweep', 'face_reduce',
                     'bin_faces', 'segment_sum')
 # every hand-written kernel, as tracing.COUNTS counts its launches
 LAUNCHED = ('forward_shaded', 'forward_index', 'bin_faces', 'insweep',
-            'outsweep', 'face_reduce', 'segment_sum')
+            'outsweep', 'face_reduce', 'segment_sum', 'composite_pool')
 # the setup and binning's device operations, by the substrings of their
 # profiler names: its count and fill kernels and CUB's scan (two kernels)
 BINNING_OPS = ('bin_count_kernel', 'bin_fill_kernel', 'DeviceScan')
@@ -755,13 +766,12 @@ def _sum_image_grads(bs, is_, dev, key='rgb'):
     """The output gradients of ``sum(image)`` as autograd hands them to
     the rasterizer's rgb ``[bs, is, is, 3]`` (or, with ``key='alpha'``,
     its alpha ``[bs, is, is]``): through the vertical flip and the 2x2 mean
-    pool of ``api._render_pass``."""
-    if key == 'rgb':
-        x = torch.zeros((bs, is_, is_, 3), device=dev, requires_grad=True)
-        image = api._avg_pool_2x2(torch.flip(x.permute(0, 3, 1, 2), dims=[2]))
-    else:
-        x = torch.zeros((bs, is_, is_), device=dev, requires_grad=True)
-        image = api._avg_pool_2x2(torch.flip(x, dims=[1]))
+    pool of ``api._render_pass`` (``composite_pool.flip_pool``)."""
+    s = RasterizeSettings(image_size=is_, return_rgb=key == 'rgb',
+                          return_alpha=key == 'alpha', return_depth=False)
+    x = torch.zeros((bs, is_, is_, 3) if key == 'rgb' else (bs, is_, is_),
+                    device=dev, requires_grad=True)
+    image = composite_pool.flip_pool(s, x, x, None, True)[key]
     g, = torch.autograd.grad(image.sum(), x)
     grads = dict(g_rgb=None, g_alpha=None, g_depth=None)
     grads[f'g_{key}'] = g
@@ -1869,6 +1879,186 @@ def _multiview_phase(dev, smi):
     return {'multiview': counts}, fworst, iworst
 
 
+def _composite_pool_phase(dev, smi, rng):
+    """Phase 22: the output pass's kernel (``composite_pool.composite_pool``)
+    against its plain version on the card, bit for bit: adversarial maps
+    (values over 48 binades, a quarter of the 2x2 windows all -0, a view
+    with no covered pixel) in every layout the kernel takes (channel
+    planes, planes with a larger batch stride as a face-group merge leaves
+    them, channel-last), pooled and not, each output alone and all three,
+    a [3] and a [bs, 3] background, at shapes that take the 16-byte path
+    and shapes that do not; then BASELINE config 5's real maps (64 ring
+    views, random textures, a 1024^2 raster, pooled and, at 512^2, not) and
+    the main path's (bs 32, 512^2, rgb only), the kernel timed alone (CUDA
+    events around bare launches into kept outputs), as the wrapper's call
+    and against the plain version, with its byte bound; one config-5 call
+    of ``render_rgbad`` under no_grad launches it once.  Returns the kernel
+    line's entry: {ms, plain_ms, bound_ms, bound_by, alone_ms, launches,
+    extras}."""
+    plain, kernel = (composite_pool.composite_pool_plain,
+                     composite_pool.composite_pool)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.randint(2 ** 31)))
+
+    def adversarial(*shape):
+        sign = torch.where(torch.rand(shape, generator=gen, device=dev)
+                           < 0.5, -1.0, 1.0)
+        scale = torch.exp2(torch.randint(-24, 25, shape, generator=gen,
+                                         device=dev).float())
+        return sign * scale * (1.0 + torch.rand(shape, generator=gen,
+                                                device=dev))
+
+    def plane_maps(*shape):
+        """adversarial maps [..., is, is], every fourth 2x2 window -0"""
+        zero = torch.zeros(shape[-2:], dtype=torch.bool, device=dev)
+        zero[0::4, 0::4] = zero[0::4, 1::4] = True
+        zero[1::4, 0::4] = zero[1::4, 1::4] = True
+        return torch.where(zero, -0.0, adversarial(*shape))
+
+    def maps(bs, is_, layout):
+        cover = torch.randint(-40, 40, (bs, is_, is_), generator=gen,
+                              device=dev).clamp(min=-1).to(torch.int32)
+        if bs > 1:
+            cover[1] = -1
+        rgb = plane_maps(bs, 5 if layout == 'strided' else 3, is_, is_)
+        if layout == 'strided':
+            rgb = rgb[:, 1:4]
+        elif layout == 'channel-last':
+            rgb = rgb.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+        return cover, rgb, plane_maps(bs, is_, is_)
+
+    def compare(name, s, cover, rgb, depth, bg, pool):
+        want = plain(s, cover, rgb, depth, bg, pool)
+        got = kernel(s, cover, rgb, depth, bg, pool)
+        for k, w in want.items():
+            if w is None:
+                _require(got[k] is None, f'{name}: {k} drawn unasked')
+                continue
+            _require(got[k].is_contiguous() and _bits_equal(got[k], w),
+                     f'{name}: the kernel\'s {k} differs from the plain '
+                     f'version in {int((got[k] != w).sum())} of {w.numel()} '
+                     f'elements, by up to {float((got[k] - w).abs().max())}')
+        return 1
+
+    cases = 0
+    for bs, is_ in ((64, 1024), (32, 512), (3, 64), (2, 40), (1, 66),
+                    (2, 30)):
+        for layout in ('planes', 'strided', 'channel-last'):
+            cover, rgb, depth = maps(bs, is_, layout)
+            for bg in (adversarial(3), -adversarial(bs, 3).abs()):
+                for pool in (True, False):
+                    for outs in ('rgb alpha depth', 'rgb', 'alpha',
+                                 'depth'):
+                        if (bs * is_ * is_ > 2 ** 22
+                                and outs not in ('rgb', 'rgb alpha depth')):
+                            continue
+                        s = RasterizeSettings(
+                            image_size=is_, return_rgb='rgb' in outs,
+                            return_alpha='alpha' in outs,
+                            return_depth='depth' in outs)
+                        cases += compare(
+                            f'bs {bs} {is_}^2 {layout} bg '
+                            f'{tuple(bg.shape)} pool {pool} {outs}', s,
+                            cover, rgb, depth, bg, pool)
+            del cover, rgb, depth
+            torch.cuda.empty_cache()
+    _log(f'output pass: the kernel equals its plain version bit for bit '
+         f'in {cases} adversarial cases')
+
+    # BASELINE config 5's real maps
+    mv = _load_script(os.path.join(ROOT, 'misc', 'torch_multiview.py'))
+    args = mv.parse_args([])
+    renderer, v, f, tx, eyes = mv.build(args)
+    nv, raster = args.views, 2 * args.image_size
+    tx = torch.as_tensor(rng.uniform(0, 1, tuple(tx.shape)).astype(
+        np.float32), device=dev)
+    ms = {}
+    with torch.no_grad():
+        fc, lit = renderer._lit_faces(v, f, tx)
+        for is_, pool in ((raster, True), (args.image_size, False)):
+            s = RasterizeSettings(image_size=is_, eps=1e-3)
+            m = forward_cuda.forward_shaded(s, fc, lit)
+            for bg in (torch.zeros(3, device=dev),
+                       torch.rand((nv, 3), generator=gen, device=dev)):
+                cases += compare(f'config 5 {is_}^2 pool {pool} bg '
+                                 f'{tuple(bg.shape)}', s,
+                                 m['face_index_map'], m['rgb'],
+                                 m['depth_map'], bg, pool)
+            del m
+        s = RasterizeSettings(image_size=raster, eps=1e-3)
+        m = forward_cuda.forward_shaded(s, fc, lit)
+        bg = torch.zeros(3, device=dev)
+        call = (s, m['face_index_map'], m['rgb'], m['depth_map'], bg, True)
+        kept = kernel(*call)
+        lib = composite_pool._kernel()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def bare():
+            lib.nr_composite_pool(
+                m['face_index_map'].data_ptr(), m['rgb'].data_ptr(),
+                m['depth_map'].data_ptr(), bg.data_ptr(), nv, raster, 1,
+                3 * raster * raster, 0, 0, kept['rgb'].data_ptr(),
+                kept['alpha'].data_ptr(), kept['depth'].data_ptr(), stream)
+
+        ms['alone'] = _time_ms(bare, reps=50, warmup=3)
+        ms['call'] = _time_ms(lambda: kernel(*call), reps=50, warmup=3)
+        ms['plain'] = _time_ms(lambda: plain(*call), reps=10, warmup=1)
+        ms['alone_again'] = _time_ms(bare, reps=50)
+        ms['plain_again'] = _time_ms(lambda: plain(*call), reps=10)
+        nbytes = nv * raster * raster * 20 + nv * args.image_size ** 2 * 20
+        bound, bound_by = _bound(nbytes, 0)
+        del m, kept, call
+        torch.cuda.empty_cache()
+
+        # the main path's shape: bs 32, 512^2, rgb only
+        s32 = RasterizeSettings(image_size=RASTER, eps=1e-3,
+                                return_alpha=False, return_depth=False)
+        m32 = forward_cuda.forward_shaded(s32, fc[:BATCH].contiguous(),
+                                          lit[:BATCH].contiguous())
+        call32 = (s32, m32['face_index_map'], m32['rgb'], None, bg, True)
+        cases += compare(f'main shape bs {BATCH} {RASTER}^2 rgb', *call32)
+        out32 = kernel(*call32)['rgb']
+
+        def bare32():
+            lib.nr_composite_pool(
+                m32['face_index_map'].data_ptr(), m32['rgb'].data_ptr(),
+                None, bg.data_ptr(), BATCH, RASTER, 1, 3 * RASTER * RASTER,
+                0, 0, out32.data_ptr(), None, None, stream)
+
+        ms['main_alone'] = _time_ms(bare32, reps=50, warmup=3)
+        ms['main_plain'] = _time_ms(lambda: plain(*call32), reps=10)
+        bytes32 = BATCH * RASTER * RASTER * 16 + BATCH * OUT_SIZE ** 2 * 12
+        ms['main_bound'] = _bound(bytes32, 0)[0]
+        del m32, out32, call32
+        torch.cuda.empty_cache()
+
+        renderer.render_rgbad(v, f, tx)
+        _reset_launches()
+        renderer.render_rgbad(v, f, tx)
+        torch.cuda.synchronize()
+        launches = _launches()
+        waits = {k: n for k, n in tracing.counts().items()
+                 if k.startswith('wait.')}
+    _require(launches['composite_pool'] == 1
+             and launches['forward_shaded'] == 1,
+             f'a config-5 call of render_rgbad launched {launches}')
+    _log(f'output pass on {smi}: config 5 ({nv} views, {raster}^2 raster '
+         f'pooled, rgb + alpha + depth, {nbytes} bytes): kernel alone '
+         f'{ms["alone"]:.4f} / {ms["alone_again"]:.4f} ms (bare launches, '
+         f'CUDA events), call {ms["call"]:.4f} ms, plain {ms["plain"]:.4f} '
+         f'/ {ms["plain_again"]:.4f} ms, bound {bound:.4f} ms ({bound_by}; '
+         f'{100 * bound / ms["alone"]:.1f}% of it); main shape (bs {BATCH}, '
+         f'{RASTER}^2, rgb): alone {ms["main_alone"]:.4f} ms, plain '
+         f'{ms["main_plain"]:.4f} ms, bound {ms["main_bound"]:.4f} ms; '
+         f'{cases} cases bit-equal; a config-5 call launches {launches} '
+         f'and waits {sum(waits.values())} times: {waits}')
+    return dict(ms=ms['call'], plain_ms=ms['plain'], bound_ms=bound,
+                bound_by=bound_by, alone_ms=ms['alone'], launches=launches,
+                extra=dict(config5_call_waits=waits,main_shape_alone_ms=ms['main_alone'],
+                           main_shape_plain_ms=ms['main_plain'],
+                           main_shape_bound_ms=ms['main_bound'],
+                           cases_bit_equal=cases))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -1900,6 +2090,7 @@ def main():
     backward_cuda._sweeps()
     backward_cuda._reduce()
     segments._kernel()
+    composite_pool._kernel()
     _log(f'build: {", ".join(p.name for p, _ in built.values())} in '
          f'{time.time() - t0:.1f} s')
     for name, (_, log) in built.items():
@@ -2301,6 +2492,9 @@ def main():
     for name in TRAINING_KERNELS:
         _require(launches[name] >= len(eyes), f'training path launched '
                  f'{name} {launches[name]} times in {len(eyes)} steps')
+    _require(launches['composite_pool'] == 0,
+             f'a training step launched the output pass\'s kernel: '
+             f'{launches}')
     for name, g in (('vertices', vg.grad), ('textures', tg.grad)):
         _require(g is not None and bool(torch.isfinite(g).all())
                  and float(g.abs().max()) > 0,
@@ -2904,6 +3098,10 @@ def main():
     worst = max(worst, fworst)
     iworst = max(iworst, iworst21)
 
+    # ---- 22. the output pass's kernel ----
+    torch.cuda.empty_cache()
+    cpool = _composite_pool_phase(dev, smi, rng)
+
     sources = {
         'forward_shaded': ('neural_renderer_torch/csrc/forward_shaded.cu',
                            'neural_renderer_tpu/rasterize/'
@@ -2947,6 +3145,16 @@ def main():
     extra['segment_sum'] = dict(step_profile_ms=segment_step_ms,
                                 ts8_texture_scale=seg_ts8,
                                 ts8_texture_scatter=sort_ms)
+    sources['composite_pool'] = (
+        'neural_renderer_torch/csrc/composite_pool.cu',
+        'XLA code, not a TPU kernel: neural_renderer_tpu/rasterize/'
+        'api.py:84-88 and the composite of its core', 0.0, launches)
+    times['composite_pool'] = (cpool['ms'], cpool['plain_ms'])
+    bounds['composite_pool'] = (cpool['bound_ms'], cpool['bound_by'])
+    alone['composite_pool'] = cpool['alone_ms']
+    library['composite_pool'] = None
+    extra['composite_pool'] = dict(config5_call_launches=cpool['launches'],
+                                   **cpool['extra'])
     _log(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
         'launches': counts[name],

@@ -12,6 +12,10 @@
   * ``backward.py`` / ``backward_cuda.py`` — the K5 sweeps, K7 depth
     channels, the per-face reduction, and the out-sweep counters
     (``out_sweep_stats``, ``count_out_crossings``, ``max_out_offset``);
-  * ``core.py`` / ``api.py`` — background composite, anti-aliasing, flip,
-    the autograd function, and the reference's public entry points.
+  * ``composite_pool.py`` — the output pass: background composite,
+    vertical flip and 2x2 mean pool in plain PyTorch, and the hand-written
+    kernel ``csrc/composite_pool.cu`` that does all three in one pass
+    where no gradient flows;
+  * ``core.py`` / ``api.py`` — the forward's maps, anti-aliasing, the
+    autograd function, and the reference's public entry points.
 """

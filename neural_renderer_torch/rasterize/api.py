@@ -4,7 +4,9 @@ Mirrors the reference wrappers (``rasterize.py:900-1065``) and the JAX
 package's ``api.py``: 2x supersampling for anti-aliasing, NCHW transpose +
 vertical flip, 2x2 average-pool downsample, and the rgb / silhouettes / depth
 convenience functions.  Outputs lie on the device of ``faces``.  All are
-differentiable (autograd runs the flip and pool around ``RasterizeCore``).
+differentiable (autograd runs the flip and pool around ``RasterizeCore``);
+a render through which no gradient can flow takes the output pass's
+kernel on the card instead (``_render_pass``).
 """
 
 import os
@@ -22,8 +24,10 @@ from neural_renderer_torch.rasterize.config import (
     DEFAULT_IMAGE_SIZE,
     DEFAULT_NEAR,
     RasterizeSettings,
+    on_card,
     resolve_device,
 )
+from neural_renderer_torch.rasterize import composite_pool, core
 from neural_renderer_torch.rasterize.core import rasterize_core
 
 # API-compat shim for the reference's global unsafe/safe toggle
@@ -115,45 +119,43 @@ class _ValueOfGradTo(torch.autograd.Function):
         return None, g
 
 
-def _avg_pool_2x2(x):
-    """[bs, (c,) h, w] -> 2x2 mean pool (reference rasterize.py:962-969)."""
-    h, w = x.shape[-2], x.shape[-1]
-    x = x.reshape(*x.shape[:-2], h // 2, 2, w // 2, 2)
-    return x.mean(dim=(-3, -1))
+def grad_flows(faces, textures, background):
+    """Whether a gradient can flow from a render to its inputs: grad mode
+    on and one of ``faces``, ``textures`` and ``background`` requiring
+    it."""
+    return torch.is_grad_enabled() and (
+        faces.requires_grad or textures.requires_grad
+        or background.requires_grad)
 
 
 def _render_pass(faces, textures, background, render_size, pool,
                  near, far, eps, return_rgb, return_alpha, return_depth,
                  face_group):
-    """One rasterize_core invocation + the reference's output formatting
-    (NCHW transpose, vertical flip, optional 2x2 mean pool —
-    rasterize.py:953-969).  Returns dict(rgb, alpha, depth) with Nones."""
+    """One forward + the reference's output formatting (NCHW transpose,
+    vertical flip, optional 2x2 mean pool — rasterize.py:953-969).
+    Returns dict(rgb, alpha, depth) with Nones.
+
+    Two routes.  Where a gradient can flow (``grad_flows``), or on the
+    CPU, ``rasterize_core`` composites and saves what its backward needs,
+    and ``composite_pool.flip_pool`` formats its maps.  Where none can, on
+    the card, nothing is saved: the forward's maps go straight to the
+    output pass's kernel (``composite_pool.composite_pool``), which writes
+    the same outputs from one read of the maps."""
     settings = RasterizeSettings(
         image_size=render_size, near=float(near), far=float(far),
         eps=float(eps), return_rgb=return_rgb, return_alpha=return_alpha,
         return_depth=return_depth, face_group=face_group).validate()
 
+    if on_card(faces) and not grad_flows(faces, textures, background):
+        maps = core.forward_maps(settings, faces, textures)
+        with tracing.span('raster.post'):
+            return composite_pool.composite_pool(
+                settings, core.coverage(maps), maps.get('rgb'),
+                maps['depth_map'], background, pool)
+
     rgb, alpha, depth = rasterize_core(settings, faces, textures, background)
-
     with tracing.span('raster.post'):
-        if return_rgb:
-            rgb = torch.flip(rgb.permute(0, 3, 1, 2), dims=[2])
-            if pool:
-                rgb = _avg_pool_2x2(rgb)
-        if return_alpha:
-            alpha = torch.flip(alpha, dims=[1])
-            if pool:
-                alpha = _avg_pool_2x2(alpha)
-        if return_depth:
-            depth = torch.flip(depth, dims=[1])
-            if pool:
-                depth = _avg_pool_2x2(depth)
-
-    return {
-        'rgb': rgb if return_rgb else None,
-        'alpha': alpha if return_alpha else None,
-        'depth': depth if return_depth else None,
-    }
+        return composite_pool.flip_pool(settings, rgb, alpha, depth, pool)
 
 
 def _prepare(faces, textures, return_rgb):
@@ -213,9 +215,7 @@ def rasterize_rgbad(
             with torch.no_grad():
                 val = _render_pass(faces, textures, background,
                                    image_size * 2, True, *common)
-            if not (torch.is_grad_enabled()
-                    and (faces.requires_grad or textures.requires_grad
-                         or background.requires_grad)):
+            if not grad_flows(faces, textures, background):
                 return val
             grad = _render_pass(faces, textures, background, image_size,
                                 False, *common)

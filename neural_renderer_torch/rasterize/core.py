@@ -29,7 +29,7 @@ import torch.distributed as dist
 from neural_renderer_torch import tracing
 from neural_renderer_torch._collectives import all_reduce
 from neural_renderer_torch.rasterize import backward as bwd
-from neural_renderer_torch.rasterize import backward_cuda
+from neural_renderer_torch.rasterize import backward_cuda, composite_pool
 from neural_renderer_torch.rasterize import forward_cuda, geometry
 from neural_renderer_torch.rasterize import texture as tex
 
@@ -81,16 +81,11 @@ def _merge_face_group(settings, out, nf_local):
     return res
 
 
-def _forward_all(settings, faces, textures, background):
-    """Full forward: (rgb, alpha, depth, maps).
-
-    background: f32 ``[3]`` (static color) or ``[bs, 3]`` (per batch
-    element, reference rasterize.py:462-465).  Unrequested channels are
-    shape-(1,) zeros; rgb is the *composited* map ``[bs, is, is, 3]``.
-    maps: the forward kernel's outputs (``forward_cuda.forward_shaded``),
-    rgb sampled in when the kernel did not shade it, merged across the
-    face group where there is one (``_merge_face_group``).
-    """
+def forward_maps(settings, faces, textures):
+    """The forward kernel's maps (``forward_cuda.forward_shaded``), rgb
+    sampled in when the kernel did not shade it, merged across the face
+    group where there is one (``_merge_face_group``).  rgb is the
+    uncomposited ``[bs, 3, is, is]``, present when drawn."""
     fuse_rgb = (settings.return_rgb
                 and textures.shape[2] <= forward_cuda.MAX_FUSED_TS)
     out = forward_cuda.forward_shaded(settings, faces,
@@ -106,18 +101,32 @@ def _forward_all(settings, faces, textures, background):
     if settings.face_group is not None:
         with tracing.span('raster.merge'):
             out = _merge_face_group(settings, out, faces.shape[1])
+    return out
+
+
+def coverage(maps):
+    """The coverage the outputs take: under a face group the global
+    winners' (a pixel won by another rank's face is covered too), else the
+    face-index map's; int32, covered where >= 0."""
+    return maps.get('global_index_map', maps['face_index_map'])
+
+
+def _forward_all(settings, faces, textures, background):
+    """Full forward: (rgb, alpha, depth, maps).
+
+    background: f32 ``[3]`` (static color) or ``[bs, 3]`` (per batch
+    element, reference rasterize.py:462-465).  Unrequested channels are
+    shape-(1,) zeros; rgb is the *composited* map ``[bs, is, is, 3]``.
+    maps: ``forward_maps``.
+    """
+    out = forward_maps(settings, faces, textures)
     with tracing.span('raster.composite'):
-        # a pixel won by another rank's face is covered too
-        covered = out.get('global_index_map', out['face_index_map']) >= 0
+        covered = coverage(out) >= 0
         dev = faces.device
 
         if settings.return_rgb:
-            rgb_map = out['rgb'].permute(0, 2, 3, 1)
-            # background composite (rasterize.py:451-465)
-            bg = (background[None, None, None, :] if background.ndim == 1
-                  else background[:, None, None, :])
-            mask = covered.to(torch.float32)[..., None]
-            rgb_map = rgb_map * mask + (1.0 - mask) * bg
+            rgb_map = composite_pool.composite(out['rgb'], covered,
+                                               background)
         else:
             rgb_map = torch.zeros(1, dtype=torch.float32, device=dev)
 
