@@ -72,9 +72,15 @@ Phases (any failure exits non-zero; progress goes to stdout):
      ``measure=True`` must return {} and leave ``perf_overrides`` as it was;
  12. a large mesh: the 163,840-face icosphere (subdiv 6, fill_back), the
      setup and binning and the index kernel against their plain versions at
-     bs 1 on 512^2 (0 mismatches), then a ``render_silhouettes`` training
-     step at batch 4, 256^2 AA, over the 8 azimuths: every kernel launches,
-     the vertex gradient is finite and non-zero, images/s printed;
+     bs 1 on 512^2 (0 mismatches), then the benchmark's dense-mesh cell
+     (``LARGE_CELL``) at its own shape, through its ``harness.Program``: a
+     ``render_silhouettes`` training step at batch 128, 256^2 AA, for each
+     of the 8 azimuths: every hand-written training kernel launches once a
+     step and no other, the vertex gradient is finite and non-zero, the
+     binning's ``work.faces`` and ``work.bin_cells`` equal the shape's faces
+     and (tile, chunk) cells, ``work.bin_pairs`` equals the port's padded
+     tile boxes (at least the pairs ``binning_roofline.sil`` counts on the
+     reference's faces); images/s, peak memory and host waits printed;
  13. long lines: on a sparse random scene at bs 1, the out-sweep at a
      4096^2 raster for ``render_silhouettes`` (alpha) and ``render`` (rgb),
      written and accumulated, against its plain version (1e-4 x channel
@@ -238,6 +244,8 @@ AZIMUTHS = [float(a) for a in range(0, 360, 45)]
 DISTANCE, ELEVATION = 2.732, 30.0
 KERNELS = ('forward_shaded', 'forward_index', 'backward_sweeps',
            'face_reduce', 'bin_faces', 'segment_sum', 'composite_pool')
+# the benchmark's dense-mesh cell, which phase 12 runs at its own shape
+LARGE_CELL = 'icosphere163k.sil_train_b128'
 # the kernels a training step launches (the index kernel serves tune)
 TRAINING_KERNELS = ('forward_shaded', 'insweep', 'outsweep', 'face_reduce',
                     'bin_faces', 'segment_sum')
@@ -1218,6 +1226,97 @@ def _grad_check(name, got, want, tol=FINGERPRINT_TOL):
     return err / scale
 
 
+def _binning_metric():
+    """The benchmark's reader of ``binning_roofline.sil``, whose
+    ``binning_work`` counts what the tile lists need."""
+    from benchmark import harness
+    return harness.reader('binning_roofline.sil', ROOT)
+
+
+def _large_mesh_phase(dev, smi, seed):
+    """Phase 12's training steps: ``LARGE_CELL`` at its own shape, driven
+    by the benchmark's ``harness.Program`` (``Renderer.render_silhouettes``
+    and the gradient of the images' sum to the vertices, one step per
+    azimuth).  Every hand-written training kernel launches once a step and
+    no other; the binning's work counts equal the shape's faces and (tile,
+    chunk) cells and, for the pairs, the port's own padded tile boxes of
+    each eye, which hold at least the pairs ``binning_roofline.sil``
+    counts on the reference's faces."""
+    from benchmark import harness
+    from benchmark.reference import renderer as bref
+    bench = harness.load_bench(ROOT)
+    _, cfg, mix = harness.load_cell(bench, LARGE_CELL, ROOT)
+    prog = harness.Program(nt, cfg, mix, seed, dev)
+    bs, steps = mix['batch'], len(prog.eyes)
+    prog.call(0)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        sil, grads = prog.call(i)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = tracing.counts()
+    launches = _launches()
+    for name in LAUNCHED:
+        want = steps if name in TRAINING_KERNELS else 0
+        _require(launches[name] == want,
+                 f'large-mesh steps launched {name} {launches[name]} times '
+                 f'in {steps} steps; want {want}')
+    g = grads['vertices']
+    _require(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+             'large-mesh vertex gradient non-finite or zero')
+    _require(float(sil.amax()) == 1.0, 'an empty icosphere silhouette')
+
+    is_ = bref.raster_size(cfg)
+    settings = RasterizeSettings(image_size=is_)
+    tile = forward_cuda._kernel().nr_forward_shaded_tile()
+    nt_ = -(-is_ // tile)
+    nf2 = 2 * prog.faces.shape[1]
+    cells = bs * nt_ * nt_ * -(-nf2 // forward_cuda.BIN_CHUNK)
+    _require(counts.get('work.faces') == steps * bs * nf2,
+             f"work.faces {counts.get('work.faces')}; want "
+             f'{steps * bs * nf2}')
+    _require(counts.get('work.bin_cells') == steps * cells,
+             f"work.bin_cells {counts.get('work.bin_cells')}; want "
+             f'{steps} x {cells}')
+    metric = _binning_metric()
+    padded, need, least = 0, 0, 0.0
+    with torch.no_grad():
+        for i in range(steps):
+            prog.renderer.eye = eye = prog.eye(i)
+            fc = prog.renderer._camera_faces(prog.vertices[:1],
+                                             prog.faces[:1])
+            padded += bs * int(forward_cuda._pairs(settings, fc, tile)[0]
+                               .sum())
+            ref_fc = bref.raster_faces(cfg, mix['entry'], prog.vertices[:1],
+                                       prog.faces[:1], eye)
+            w = metric.binning_work(ref_fc, is_,
+                                    torch.tensor([bs], device=dev))
+            need += w['pairs']
+            least += _bound(w['bytes'], w['ops'])[0] / steps
+    _require(counts.get('work.bin_pairs') == padded,
+             f"work.bin_pairs {counts.get('work.bin_pairs')}; the port's "
+             f'padded tile boxes hold {padded}')
+    _require(need <= padded, f'binning_roofline.sil counts {need} pairs, '
+             f'more than the {padded} of the padded boxes')
+    waits = {k[5:]: v / steps for k, v in counts.items()
+             if k.startswith('wait.')}
+    _log(f'large mesh (training, {LARGE_CELL}): nf {nf2}, {steps} steps x '
+         f'batch {bs}, {cfg["image_size"]}^2 AA, render_silhouettes + the '
+         f'gradient of sum() w.r.t. vertices: {elapsed:.4f} s, '
+         f'{steps * bs / elapsed:.2f} training images/s on {smi}; peak '
+         f'{peak} bytes; launches {launches}; host waits a step {waits}; '
+         f'max |grad| {float(g.abs().max()):.6g}')
+    _log(f'large mesh binning a step: {cells} (tile, chunk) cells, '
+         f'{padded // steps} pairs in the padded boxes against '
+         f'{need // steps} that binning_roofline.sil counts '
+         f'({padded / max(need, 1):.4f}x; the +-1 pixel pad for rounding); '
+         f'its bound {least:.4f} ms by bytes')
+
+
 def _examples_phase(dev, smi):
     """Phase 17: the four examples' ``run`` with their defaults on the card
     (outputs into a temporary directory), their step-0 losses, convergence
@@ -2192,16 +2291,17 @@ def main():
     tile_pairs32 = _compare_bins(
         f'teapot {RASTER}^2 bs {BATCH} (main path shape)', s512, fc32)
 
-    nt32 = -(-RASTER // tile)
-    # faces read once; records, first, start, ids and order written once
-    bin_bound = _bound(4 * fc32.numel() + 4 * BATCH * nf2 * (18 + 1)
-                       + 4 * BATCH * nt32 * nt32 + 2 * 4 * tile_pairs32, 0)
+    # the benchmark's count (binning_roofline.sil): faces read, records,
+    # an id per pair of each face's tile box and a start per tile written
+    bin_work = _binning_metric().binning_work(fc32, RASTER)
+    bin_bound = _bound(bin_work['bytes'], bin_work['ops'])
     binning_times = _binning_times(
         f'at bs {BATCH}, {RASTER}^2, nf {nf2}', s512, fc32, tile, smi)
     binning_times.update(bound_ms=bin_bound[0], bound_by=bin_bound[1],
                          pairs=tile_pairs32)
     _log(f'setup + binning bound at bs {BATCH}: {bin_bound[0]:.4f} ms by '
-         f'{bin_bound[1]} ({tile_pairs32} pairs)')
+         f'{bin_bound[1]} ({bin_work["pairs"]} pairs counted, '
+         f'{tile_pairs32} in the padded boxes)')
 
     # the real model's 24 views as misc/torch_render.py renders them (a
     # face over 252 tiles, lists of up to 944 faces): lists equal, timed
@@ -2688,7 +2788,7 @@ def main():
     _log(f'tune(measure=True): {declined}, perf_overrides untouched; '
          f'warning: {caught[0].message}')
 
-    # ---- 12. a large mesh ----
+    # ---- 12. a large mesh: the benchmark's dense-mesh cell ----
     lv, lf = _icosphere(6)
     lvt = torch.as_tensor(lv[None], device=dev)
     lft = torch.as_tensor(lf[None].astype(np.int64), device=dev)
@@ -2703,41 +2803,7 @@ def main():
     iworst = max(iworst, _compare_index(
         f'icosphere nf {nfl} {RASTER}^2 bs 1', s512, fcl))
     del fcl
-    lbs = 4
-    lv4 = lvt.expand(lbs, -1, -1).clone().requires_grad_()
-    lf4 = lft.expand(lbs, -1, -1)
-
-    def large_step(eye):
-        large.eye = eye
-        lv4.grad = None
-        sil = large.render_silhouettes(lv4, lf4)
-        sil.sum().backward()
-        return sil
-
-    large_step(eyes[0])                           # warm-up
-    torch.cuda.synchronize()
-    _reset_launches()
-    t0 = time.perf_counter()
-    for eye in eyes:
-        sil = large_step(eye)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    large_launches = _launches()
-    for name in TRAINING_KERNELS:
-        _require(large_launches[name] >= len(eyes),
-                 f'large-mesh step launched {name} '
-                 f'{large_launches[name]} times in {len(eyes)} steps')
-    g = lv4.grad
-    _require(g is not None and bool(torch.isfinite(g).all())
-             and float(g.abs().max()) > 0,
-             'large-mesh vertex gradient missing, non-finite or zero')
-    _require(float(sil.detach().amax()) == 1.0,
-             'an empty icosphere silhouette')
-    _log(f'large mesh (training): icosphere nf {nfl}, {len(eyes)} steps x '
-         f'batch {lbs}, {OUT_SIZE}^2 AA, render_silhouettes + '
-         f'sum().backward() w.r.t. vertices: {elapsed:.4f} s, '
-         f'{len(eyes) * lbs / elapsed:.2f} training images/s on {smi}; '
-         f'launches {large_launches}; max |grad| {float(g.abs().max()):.6g}')
+    _large_mesh_phase(dev, smi, args.seed)
 
     # ---- 13. long lines: the out-sweep at any line length ----
     lv_s, lf_s = _sparse_scene(rng, 400)

@@ -329,7 +329,9 @@ def bin_setup(settings, faces, tile, records=('rec',)):
     A CUDA tensor runs the kernels of ``csrc/bin_faces.cu`` (counted once as
     ``tracing.COUNTS['launch.bin_faces']``) or raises; the pair total is
     read back to the host once (``wait.read.bin_total``), to size ``ids``
-    and ``order``.  A CPU tensor runs ``bin_setup_plain``.
+    and ``order``.  It also counts its work: ``work.faces`` (``bs * nf``),
+    ``work.bin_pairs`` (the pair total) and ``work.bin_cells`` (the
+    kernels' (tile, chunk) cells).  A CPU tensor runs ``bin_setup_plain``.
     """
     unknown = set(records) - {'rec', 'irec'}
     if unknown:
@@ -385,6 +387,9 @@ def _bin_setup(settings, faces, tile, records):
             out['first'].data_ptr(), out['start'].data_ptr(), stream)
         _build.raise_on_error(lib, rc, 'bin_faces fill')
     tracing.COUNTS['launch.bin_faces'] += 1
+    tracing.COUNTS['work.faces'] += nseg
+    tracing.COUNTS['work.bin_pairs'] += total
+    tracing.COUNTS['work.bin_cells'] += cells
     return out
 
 

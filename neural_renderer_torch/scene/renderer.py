@@ -113,8 +113,9 @@ class Renderer(object):
             vertices, faces, _ = self._mesh(vertices, faces)
             with tracing.span('scene.camera'):
                 vertices = self._transform(vertices)
-            return vertices_to_faces(vertices, faces, self.face_group,
-                                     self.fill_back)
+            with tracing.span('scene.gather'):
+                return vertices_to_faces(vertices, faces, self.face_group,
+                                         self.fill_back)
 
     def render_silhouettes(self, vertices, faces):
         with tracing.span('render_silhouettes'):
@@ -134,11 +135,12 @@ class Renderer(object):
         coords (pointwise, so exact)."""
         with tracing.span('scene'):
             vertices, faces, textures = self._mesh(vertices, faces, textures)
+            with tracing.span('scene.gather'):
+                faces_lighting = vertices_to_faces(
+                    vertices, faces, self.face_group, self.fill_back)
             with tracing.span('scene.lighting'):
                 if self.fill_back:
                     textures = self._fill_back_textures(textures)
-                faces_lighting = vertices_to_faces(
-                    vertices, faces, self.face_group, self.fill_back)
                 textures = lighting(
                     faces_lighting,
                     textures,

@@ -9,7 +9,8 @@ spans.  The spans are the layer boundaries of a call:
 
   * ``nr.render``, ``nr.render_rgbad``, ``nr.render_silhouettes``,
     ``nr.render_depth``: a ``Renderer`` entry point, the root of a call;
-  * ``nr.scene`` (``.lighting``, ``.camera``): the pre-raster ops;
+  * ``nr.scene`` (``.gather``, ``.lighting``, ``.camera``): the pre-raster
+    ops, ``.gather`` the per-face gather of the vertices;
   * ``nr.raster`` (``.bin_setup``, ``.shade``, ``.merge``, ``.composite``,
     ``.post``): the rasterizer's forward (and ``nr.raster.index``, the
     index kernel's launch, which ``tune`` makes);
@@ -25,7 +26,12 @@ spans.  The spans are the layer boundaries of a call:
     never a plain version's call;
   * ``wait.copy.<site>``: copies of host data to the card made inside a
     call;
-  * ``wait.read.<site>``: host reads of a value on the card.
+  * ``wait.read.<site>``: host reads of a value on the card;
+  * ``work.faces``, ``work.bin_pairs``, ``work.bin_cells``: what the
+    binning (``forward_cuda.bin_setup``) was handed and made: faces
+    (``bs * nf``, after fill_back), (tile, face) pairs, and the (tile,
+    128-face chunk) cells its kernels scan, all known on the host without a
+    further wait.
 
 The plain CPU paths count nothing.
 """

@@ -1,10 +1,15 @@
 """The port's spans and counters (``neural_renderer_torch/tracing.py``) on
 the CPU: each entry point's spans under ``torch.profiler`` with their
-parents, the shared null context with no profiler running, and the counts
-a plain CPU render leaves (none)."""
+parents, the shared null context with no profiler running, the counts a
+plain CPU render leaves (none), and the binning's work counts, with the
+kernels of ``csrc/bin_faces.cu`` stood in for by a fake that writes the
+pair total where they do."""
 
+import contextlib
+import ctypes
 import os
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -12,11 +17,13 @@ from torch.profiler import ProfilerActivity, profile
 import neural_renderer_torch as nt
 import utils
 from neural_renderer_torch import tracing
+from neural_renderer_torch.rasterize import forward_cuda
+from neural_renderer_torch.rasterize.config import RasterizeSettings
 
 TEAPOT = os.path.join(utils.DATA_DIR, 'teapot.obj')
 
-SCENE = {('nr.scene', None), ('nr.scene.lighting', 'nr.scene'),
-         ('nr.scene.camera', 'nr.scene')}
+SCENE = {('nr.scene', None), ('nr.scene.gather', 'nr.scene'),
+         ('nr.scene.lighting', 'nr.scene'), ('nr.scene.camera', 'nr.scene')}
 RASTER = {('nr.raster.shade', 'nr.raster'),
           ('nr.raster.composite', 'nr.raster'),
           ('nr.raster.post', 'nr.raster')}
@@ -44,11 +51,11 @@ WANT = {
     'render_silhouettes': (
         {('nr.render_silhouettes', None),
          ('nr.scene', 'nr.render_silhouettes'),
-         ('nr.scene.camera', 'nr.scene'),
+         ('nr.scene.camera', 'nr.scene'), ('nr.scene.gather', 'nr.scene'),
          ('nr.raster', 'nr.render_silhouettes')} | RASTER, False),
     'render_depth': (
         {('nr.render_depth', None), ('nr.scene', 'nr.render_depth'),
-         ('nr.scene.camera', 'nr.scene'),
+         ('nr.scene.camera', 'nr.scene'), ('nr.scene.gather', 'nr.scene'),
          ('nr.raster', 'nr.render_depth'), ('nr.backward', None),
          ('nr.backward.k7', 'nr.backward'),
          ('nr.backward.reduce', 'nr.backward'),
@@ -138,3 +145,59 @@ def test_waits_are_counted_and_marked():
                              'nr.wait.read.probe']
     tracing.reset()
     assert tracing.counts() == {}
+
+
+class _FakeBinning:
+    """The entry points of ``csrc/bin_faces.cu`` on CPU tensors: the count
+    writes the pair total where the kernel does (entry ``bs * nf`` of its
+    int64 scan), the fill writes nothing."""
+
+    def __init__(self, total):
+        self.total = total
+
+    @staticmethod
+    def nr_bin_cells(bs, nf, is_, tile):
+        nt_ = -(-is_ // tile)
+        return bs * nt_ * nt_ * -(-nf // forward_cuda.BIN_CHUNK)
+
+    @staticmethod
+    def nr_bin_scan_bytes(bs, nf, is_, tile):
+        return 0
+
+    def nr_bin_count(self, faces, bs, nf, is_, tile, rec, irec, rect, count,
+                     box, mask, scan, temp, temp_bytes, stream):
+        ctypes.c_int64.from_address(scan + 8 * bs * nf).value = self.total
+        return 0
+
+    @staticmethod
+    def nr_bin_fill(*args):
+        return 0
+
+
+@pytest.mark.parametrize('bs,nf', [(2, 300), (3, 129)])
+def test_binning_counts_its_work(monkeypatch, bs, nf):
+    settings = RasterizeSettings(image_size=64)
+    tile = 16
+    fc = torch.as_tensor(np.random.default_rng(bs).uniform(
+        -1.0, 1.0, (bs, nf, 3, 3)), dtype=torch.float32)
+    fc[..., 2] = fc[..., 2].abs() + 1.0
+    total = forward_cuda.bin_faces(settings, fc, tile)[1].numel()
+    monkeypatch.setattr(forward_cuda, '_binning',
+                        lambda: _FakeBinning(total))
+    monkeypatch.setattr(forward_cuda, 'on_card', lambda t: True)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda dev: type('S', (), {'cuda_stream': 0}))
+    monkeypatch.setattr(torch.cuda, 'device',
+                        lambda dev: contextlib.nullcontext())
+    forward_cuda._bin_sizes.cache_clear()
+    tracing.reset()
+    try:
+        out = forward_cuda.bin_setup(settings, fc, tile)
+    finally:
+        forward_cuda._bin_sizes.cache_clear()
+    assert out['ids'].numel() == total > 0
+    assert tracing.counts() == {
+        'launch.bin_faces': 1, 'wait.read.bin_total': 1,
+        'work.faces': bs * nf, 'work.bin_pairs': total,
+        'work.bin_cells': bs * 4 * 4 * -(-nf // 128)}
+    tracing.reset()
