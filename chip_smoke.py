@@ -173,17 +173,27 @@ Phases (any failure exits non-zero; progress goes to stdout):
      5's real maps (1024^2 pooled, 512^2 not) and the main path's (bs 32,
      512^2, rgb only); timed alone with CUDA events around bare launches,
      as a call and against the plain version, with its byte bound; one
-     config-5 call launches it once (phase 7: a training step never).
+     config-5 call launches it once (phase 7: a training step never);
+ 23. the face gradient's assembly (``backward_cuda.face_grad``, in
+     ``csrc/face_reduce.cu``) against its plain version, bit for bit as
+     int32 patterns, on per-face random sums with -0, NaN and infinities:
+     the icosphere cell's step (bs 128 x 163,840 faces, K5), the teapot
+     cell's (bs 128, K5 and the K6 cells), ``render_rgbad``'s and
+     ``render_depth``'s K7 layouts and an odd face count with rows further
+     apart than the columns read; timed alone (CUDA events around bare
+     launches), as a call, against the plain version and the chain the port
+     ran before it, with its byte bound; a training step launches it once,
+     a render under no_grad never (phase 22: a config-5 call never).
 
 Every profiler window is padded with idle host time at both ends
 (``_profile``); a window that caught none of a kernel's launches is logged
 and profiled again (``_kernel_device_ms``).
 
 The last stdout line is the JSON device record.  The line before it lists
-eight kernels: the five TPU kernels' counterparts, the setup and binning
-(``bin_faces``), the segmented sum (``segment_sum``) and the output pass
-(``composite_pool``), the last three not TPU kernels (the JAX package does
-them in XLA).  Each has its launches on its
+nine kernels: the five TPU kernels' counterparts, the setup and binning
+(``bin_faces``), the segmented sum (``segment_sum``), the output pass
+(``composite_pool``) and the face gradient's assembly (``face_grad``), the
+last four not TPU kernels (the JAX package does them in XLA).  Each has its launches on its
 path (phase 7 for the training kernels, phase 11 for the index kernel) and
 per step, on each example's run (phase 17), on phase 19's runs (the
 dataset renderer, the model's training step and its ``tune``) and on the
@@ -248,10 +258,11 @@ KERNELS = ('forward_shaded', 'forward_index', 'backward_sweeps',
 LARGE_CELL = 'icosphere163k.sil_train_b128'
 # the kernels a training step launches (the index kernel serves tune)
 TRAINING_KERNELS = ('forward_shaded', 'insweep', 'outsweep', 'face_reduce',
-                    'bin_faces', 'segment_sum')
+                    'face_grad', 'bin_faces', 'segment_sum')
 # every hand-written kernel, as tracing.COUNTS counts its launches
 LAUNCHED = ('forward_shaded', 'forward_index', 'bin_faces', 'insweep',
-            'outsweep', 'face_reduce', 'segment_sum', 'composite_pool')
+            'outsweep', 'face_reduce', 'face_grad', 'segment_sum',
+            'composite_pool')
 # the setup and binning's device operations, by the substrings of their
 # profiler names: its count and fill kernels and CUB's scan (two kernels)
 BINNING_OPS = ('bin_count_kernel', 'bin_fill_kernel', 'DeviceScan')
@@ -2138,7 +2149,8 @@ def _composite_pool_phase(dev, smi, rng):
         waits = {k: n for k, n in tracing.counts().items()
                  if k.startswith('wait.')}
     _require(launches['composite_pool'] == 1
-             and launches['forward_shaded'] == 1,
+             and launches['forward_shaded'] == 1
+             and launches['face_grad'] == 0,
              f'a config-5 call of render_rgbad launched {launches}')
     _log(f'output pass on {smi}: config 5 ({nv} views, {raster}^2 raster '
          f'pooled, rgb + alpha + depth, {nbytes} bytes): kernel alone '
@@ -2156,6 +2168,151 @@ def _composite_pool_phase(dev, smi, rng):
                            main_shape_plain_ms=ms['main_plain'],
                            main_shape_bound_ms=ms['main_bound'],
                            cases_bit_equal=cases))
+
+
+
+# the face gradient's shapes (phase 23): name -> (bs, nf after fill_back,
+# row width, k5, k7_off, leading columns handed over or None for all)
+FACE_GRAD_SHAPES = {
+    'icosphere bs 128 (K5)': (128, 163840, 12, True, None, None),
+    'teapot bs 128 (K5, K6 ts 2)': (128, 4928, 36, True, None, None),
+    'teapot bs 32 render_rgbad (K5, K7, K6 ts 2)': (32, 4928, 45, True, 12,
+                                                    None),
+    'teapot bs 4 render_depth (K7)': (4, 4928, 9, False, 0, None),
+    'odd bs 3 x 1,237 (K5, K7, rows 45 apart)': (3, 1237, 45, True, 12, 21),
+}
+
+
+def _face_grad_phase(dev, smi, rng):
+    """Phase 23: the face gradient's assembly (``backward_cuda.face_grad``,
+    ``csrc/face_reduce.cu``) against its plain version on the card, bit for
+    bit as int32 patterns, on per-face random sums (each face's row its own
+    draw, about a twelfth of the entries -0, NaN or an infinity), at
+    ``FACE_GRAD_SHAPES``: the icosphere cell's step, the teapot cell's
+    with its K6 cells, a K7 layout of ``render_rgbad`` and of
+    ``render_depth``, and an odd face count whose rows lie further apart
+    than the columns handed over.  At the icosphere's and the teapot's
+    shapes the kernel is timed alone (CUDA events around bare launches into
+    a kept output), as the wrapper's call, against the plain version, the
+    chain the port ran before it (zeros, six column sums stacked with
+    three zero columns, added) and its byte bound (each face's row of sums
+    read once, 36 bytes written).  A teapot training step launches it once,
+    a render under no_grad never.  Returns the kernel line's entry: {ms,
+    plain_ms, bound_ms, bound_by, alone_ms, launches, extra}."""
+    plain, kernel = backward_cuda.face_grad_plain, backward_cuda.face_grad
+    gen = torch.Generator(device=dev).manual_seed(int(rng.randint(2 ** 31)))
+    lib = backward_cuda._reduce()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def seed_chain(sums, face_shape):
+        """the assembly before face_grad: zeros + the stacked K5 slots"""
+        cols = []
+        for v in range(3):
+            for _, c0, c1 in bwd.K5_SLOTS[2 * v:2 * v + 2]:
+                cols.append(sums[:, c0] + sums[:, c1])
+            cols.append(torch.zeros_like(cols[-1]))
+        grad = torch.zeros(face_shape, dtype=torch.float32, device=dev)
+        return grad + torch.stack(cols, dim=-1).reshape(face_shape)
+
+    timed, cases = {}, 0
+    for name, (bs, nf, width, k5, k7_off, cols) in FACE_GRAD_SHAPES.items():
+        n = bs * nf
+        full = torch.randn((n, width), generator=gen, device=dev)
+        pick = torch.randint(0, 64, (n, width), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        for k, value in enumerate((-0.0, float('nan'), float('inf'),
+                                   -float('inf'), -0.0)):
+            full[pick == k] = value
+        del pick
+        sums = full if cols is None else full[:, :cols]
+        face_shape = (bs, nf, 3, 3)
+        want = plain(sums, face_shape, k5, k7_off)
+        got = kernel(sums, face_shape, k5, k7_off)
+        again = kernel(sums, face_shape, k5, k7_off)
+        torch.cuda.synchronize()
+        gi, wi = got.view(torch.int32), want.view(torch.int32)
+        differ = gi != wi
+        _require(got.is_contiguous() and not bool(differ.any()),
+                 f'face_grad {name}: the kernel differs from the plain '
+                 f'version in {int(differ.sum())} of {got.numel()} entries '
+                 f'({int((differ & torch.isnan(got) & torch.isnan(want)).sum())}'
+                 f' of them NaN on both sides)')
+        _require(torch.equal(again.view(torch.int32), gi),
+                 f'face_grad {name}: a repeat launch differs')
+        cases += 1
+        if k5 and k7_off is None and cols is None:
+            seed = seed_chain(sums, face_shape)
+            _require(torch.equal(seed.view(torch.int32), wi),
+                     f'face_grad {name}: the plain version differs from the '
+                     f'chain it replaced')
+            kept = torch.empty_like(got)
+
+            def bare():
+                lib.nr_face_grad(sums.data_ptr(), sums.stride(0), n, 1, -1,
+                                 kept.data_ptr(), stream)
+
+            ms = dict(alone=_time_ms(bare, reps=50, warmup=3),
+                      call=_time_ms(lambda: kernel(sums, face_shape, k5,
+                                                   k7_off), reps=50,
+                                    warmup=3),
+                      plain=_time_ms(lambda: plain(sums, face_shape, k5,
+                                                   k7_off), reps=10),
+                      chain=_time_ms(lambda: seed_chain(sums, face_shape),
+                                     reps=10),
+                      alone_again=_time_ms(bare, reps=50))
+            nbytes = n * 12 * 4 + n * 36
+            ms['bound'], ms['bound_by'] = _bound(nbytes, 0)
+            ms['bytes'] = nbytes
+            timed[name] = ms
+            del seed, kept
+        del full, sums, want, got, again, gi, wi, differ
+        torch.cuda.empty_cache()
+    for name, ms in timed.items():
+        _log(f'face gradient on {smi}, {name}: kernel alone '
+             f'{ms["alone"]:.4f} / {ms["alone_again"]:.4f} ms (bare '
+             f'launches, CUDA events), call {ms["call"]:.4f} ms, plain '
+             f'{ms["plain"]:.4f} ms, the chain it replaced '
+             f'{ms["chain"]:.4f} ms, bound {ms["bound"]:.4f} ms '
+             f'({ms["bound_by"]}: {ms["bytes"]} bytes; '
+             f'{100 * ms["bound"] / ms["alone"]:.1f}% of it)')
+
+    # one training step launches it once, a render without gradient never
+    v, f = _teapot()
+    vt = torch.as_tensor(v[None], device=dev).expand(4, -1, -1).contiguous()
+    ft = torch.as_tensor(f[None].astype(np.int64), device=dev).expand(
+        4, -1, -1)
+    r = nt.Renderer()
+    r.eye = torch.tensor([0.0, 0.5, -2.7], device=dev)
+    launches = {}
+    for mode in ('step', 'no_grad', 'step'):
+        _reset_launches()
+        if mode == 'step':
+            vg = vt.clone().requires_grad_(True)
+            r.render_silhouettes(vg, ft).sum().backward()
+        else:
+            with torch.no_grad():
+                r.render_silhouettes(vt, ft)
+        torch.cuda.synchronize()
+        launches[mode] = _launches()
+    _require(launches['step']['face_grad'] == 1
+             and launches['no_grad']['face_grad'] == 0,
+             f'face_grad launches: a training step {launches["step"]}, a '
+             f'render under no_grad {launches["no_grad"]}')
+    _log(f'face gradient: the kernel equals its plain version bit for bit '
+         f'in {cases} shapes ({", ".join(FACE_GRAD_SHAPES)}); a training '
+         f'step launches it {launches["step"]["face_grad"]} time, a render '
+         f'under no_grad {launches["no_grad"]["face_grad"]}')
+    main = timed['icosphere bs 128 (K5)']
+    teapot = timed['teapot bs 128 (K5, K6 ts 2)']
+    return dict(ms=main['call'], plain_ms=main['plain'],
+                bound_ms=main['bound'], bound_by=main['bound_by'],
+                alone_ms=main['alone'], launches=launches,
+                extra=dict(chain_replaced_ms=main['chain'],
+                           teapot_alone_ms=teapot['alone'],
+                           teapot_plain_ms=teapot['plain'],
+                           teapot_chain_replaced_ms=teapot['chain'],
+                           teapot_bound_ms=teapot['bound'],
+                           shapes_bit_equal=cases))
 
 
 def main():
@@ -3168,6 +3325,10 @@ def main():
     torch.cuda.empty_cache()
     cpool = _composite_pool_phase(dev, smi, rng)
 
+    # ---- 23. the face gradient's assembly ----
+    torch.cuda.empty_cache()
+    fgrad = _face_grad_phase(dev, smi, rng)
+
     sources = {
         'forward_shaded': ('neural_renderer_torch/csrc/forward_shaded.cu',
                            'neural_renderer_tpu/rasterize/'
@@ -3221,6 +3382,17 @@ def main():
     library['composite_pool'] = None
     extra['composite_pool'] = dict(config5_call_launches=cpool['launches'],
                                    **cpool['extra'])
+    sources['face_grad'] = (
+        'neural_renderer_torch/csrc/face_reduce.cu',
+        'XLA code, not a TPU kernel: neural_renderer_tpu/rasterize/'
+        'backward.py:540-565 (scatter_pixel_channels) and the K7 add',
+        0.0, launches)
+    times['face_grad'] = (fgrad['ms'], fgrad['plain_ms'])
+    bounds['face_grad'] = (fgrad['bound_ms'], fgrad['bound_by'])
+    alone['face_grad'] = fgrad['alone_ms']
+    library['face_grad'] = None
+    extra['face_grad'] = dict(phase23_launches=fgrad['launches'],
+                              **fgrad['extra'])
     _log(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
         'launches': counts[name],

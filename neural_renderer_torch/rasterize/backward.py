@@ -37,6 +37,15 @@ from neural_renderer_torch.rasterize import forward_dense, geometry
 # holds term c_k of edge e walked along axis a (JAX backward.py:46)
 _EA = [(e, a) for a in range(2) for e in range(3)]
 
+# grad_faces' K5 slots: (slot 3 * v + c, column of c0, column of c1) of the
+# 12 per-face K5 sums.  Slot (vertex v, coord c < 2) receives the c0 column
+# of walk (e=v, a=1-c) plus the c1 column of walk (e=(v+2)%3, a=1-c); the z
+# slots receive none (JAX backward.py:540-565).  backward_cuda.face_grad
+# adds them.
+K5_SLOTS = tuple((3 * v + c, 2 * _EA.index((v, 1 - c)),
+                  2 * _EA.index(((v + 2) % 3, 1 - c)) + 1)
+                 for v in range(3) for c in range(2))
+
 # elements of one [bs, rows, is, is] temporary of the plain out-sweep
 _SWEEP_ELEMS = 1 << 24
 
@@ -265,21 +274,6 @@ def face_segments(face_index_map, nf):
                      device=face_index_map.device)[:, None, None]
     return torch.where(face_index_map >= 0, b * nf + face_index_map,
                        bs * nf)
-
-
-def scatter_pixel_channels(sums, bs, nf):
-    """The 12 per-face K5 sums ``[bs * nf, 12]`` -> grad_faces
-    ``[bs, nf, 3, 3]``.  Slot (vertex v, coord c) receives the c0 column of
-    walk (e=v, a=1-c) plus the c1 column of walk (e=(v+2)%3, a=1-c); the z
-    column is 0 (JAX backward.py:540-565)."""
-    cols = []
-    for v in range(3):
-        for c in range(2):
-            ch0 = _EA.index((v, 1 - c))
-            ch1 = _EA.index(((v + 2) % 3, 1 - c))
-            cols.append(sums[:, 2 * ch0] + sums[:, 2 * ch1 + 1])
-        cols.append(torch.zeros_like(cols[-1]))
-    return torch.stack(cols, dim=-1).reshape(bs, nf, 3, 3)
 
 
 def depth_channels(settings, covered, z, face_inv_map, weight_map,

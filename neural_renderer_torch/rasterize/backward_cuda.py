@@ -1,6 +1,6 @@
 """The backward's CUDA kernels and their plain versions.
 
-Three hand-written kernels carry the rasterizer's approximate backward on
+Four hand-written kernels carry the rasterizer's approximate backward on
 the card:
 
   * ``insweep`` (``csrc/backward_sweeps.cu``, replaces the TPU kernel
@@ -11,10 +11,15 @@ the card:
   * ``face_reduce`` (``csrc/face_reduce.cu``, replaces ``backward_pallas.
     _csr_kernel`` and its segment_sum): per-face sums of the fused
     per-pixel channel stack, K6 factors expanded to texture cells, per
-    (tile, face) pair of the forward's tile lists and then per face.
+    (tile, face) pair of the forward's tile lists and then per face;
+  * ``face_grad`` (same source, replaces the JAX package's XLA scatter of
+    the K5 sums, ``neural_renderer_tpu/rasterize/backward.py:540-565``):
+    ``grad_faces`` from the per-face sums, the K5 sums added in their
+    vertex slots and the K7 columns after them, in one pass.
 
 Each wrapper sends a CPU tensor to its plain PyTorch version
-(``insweep_plain``, ``outsweep_plain``, ``face_reduce_plain``) and a CUDA
+(``insweep_plain``, ``outsweep_plain``, ``face_reduce_plain``,
+``face_grad_plain``) and a CUDA
 tensor to its kernel, which it launches or raises; any other device raises.
 ``tracing.COUNTS`` counts each kernel's launches (``launch.<kernel>``),
 never plain-version calls.
@@ -63,9 +68,11 @@ def _sweeps():
 def _reduce():
     """The face-reduction kernels' library, built at first use."""
     lib = _build.load('face_reduce')
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.nr_face_reduce.argtypes = [ptr] * 6 + [i32] * 5 + [ptr] * 3
     lib.nr_face_reduce.restype = i32
+    lib.nr_face_grad.argtypes = [ptr, i64, i64, i32, i32, ptr, ptr]
+    lib.nr_face_grad.restype = i32
     lib.nr_face_reduce_tile.argtypes = []
     lib.nr_face_reduce_tile.restype = i32
     lib.nr_error_string.argtypes = [i32]
@@ -390,4 +397,60 @@ def face_reduce(stack, face_index_map, nf, ts=0, bins=None):
             _stream(stack))
     _build.raise_on_error(lib, rc, 'face_reduce')
     tracing.COUNTS['launch.face_reduce'] += 1
+    return out
+
+
+def face_grad_plain(sums, face_shape, k5, k7_off=None):
+    """The plain PyTorch version of ``face_grad``: each K5 slot's two sums
+    (``backward.K5_SLOTS``) added onto zeros, then the K7 columns added."""
+    grad = torch.zeros((sums.shape[0], 9), dtype=torch.float32,
+                       device=sums.device)
+    if k5:
+        for slot, c0, c1 in bwd.K5_SLOTS:
+            grad[:, slot].add_(sums[:, c0] + sums[:, c1])
+    if k7_off is not None:
+        grad.add_(sums[:, k7_off:k7_off + 9])
+    return grad.reshape(face_shape)
+
+
+def face_grad(sums, face_shape, k5, k7_off=None):
+    """``grad_faces`` ``face_shape = (bs, nf, 3, 3)``, float32 and
+    contiguous, from the per-face sums ``[bs * nf, C_out]`` of
+    ``face_reduce``.  ``k5``: columns 0-11 hold the K5 sums, added in their
+    vertex slots (``backward.K5_SLOTS``; the z slots get none); ``k7_off``:
+    the first of the 9 K7 columns (slot order), added after, or None.
+    Entry (v, c < 2) is ``(0 + (c0 + c1)) + k7`` and entry (v, 2) ``0 +
+    k7``, the terms present as asked; the leading ``0 +`` turns -0 into +0.
+
+    A CUDA tensor launches the kernel (``csrc/face_reduce.cu``, one pass,
+    counted as ``tracing.COUNTS['launch.face_grad']``) into a new tensor, or
+    raises; a CPU tensor runs ``face_grad_plain``.  Both give the same
+    bits."""
+    face_shape = tuple(face_shape)
+    if len(face_shape) != 4 or face_shape[2:] != (3, 3):
+        raise ValueError(f'face_shape must be (bs, nf, 3, 3); got '
+                         f'{face_shape}')
+    n = face_shape[0] * face_shape[1]
+    width = max(12 if k5 else 0, 0 if k7_off is None else k7_off + 9)
+    if (sums.dtype != torch.float32 or sums.ndim != 2
+            or sums.shape[0] != n or sums.shape[1] < width
+            or (sums.shape[1] > 1 and sums.stride(1) != 1)):
+        raise ValueError(f'sums must be float32 [{n}, >= {width}] with '
+                         f'unit column stride; got {sums.dtype} '
+                         f'{tuple(sums.shape)} strides {sums.stride()}')
+    if k7_off is not None and k7_off < 0:
+        raise ValueError(f'k7_off must be None or >= 0; got {k7_off}')
+    if not on_card(sums):
+        return face_grad_plain(sums, face_shape, k5, k7_off)
+    out = torch.empty(face_shape, dtype=torch.float32, device=sums.device)
+    if n == 0:
+        return out
+    lib = _reduce()
+    index = sums.get_device()
+    with _build.current_device(index):
+        rc = lib.nr_face_grad(sums.data_ptr(), sums.stride(0), n, int(k5),
+                              -1 if k7_off is None else k7_off,
+                              out.data_ptr(), _build.raw_stream(index))
+    _build.raise_on_error(lib, rc, 'face_grad')
+    tracing.COUNTS['launch.face_grad'] += 1
     return out

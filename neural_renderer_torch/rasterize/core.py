@@ -13,10 +13,10 @@ the 12 K5 channels (in-sweep, then the out-sweep added in place), the 9 K7
 channels when depth is drawn, and the ``ts^2 + ts + 3`` K6 factor channels
 for ``ts <= 4``.  One per-face reduction (``backward_cuda.face_reduce``,
 which on the card sums by the forward's tile lists) sums it, expanding the
-factors to texture cells, and the K5 sums are mapped to vertex slots by
-``scatter_pixel_channels``.  Only what
-``ctx.needs_input_grad`` asks for is computed, and a forward that needs no
-gradient saves nothing.
+factors to texture cells, and one pass (``backward_cuda.face_grad``, a
+kernel on the card) maps the K5 sums to vertex slots and adds the K7 sums
+into ``grad_faces``.  Only what ``ctx.needs_input_grad`` asks for is
+computed, and a forward that needs no gradient saves nothing.
 
 Outputs are raster-space maps: row 0 = top in +y-down pixel space; the
 public wrappers in ``api.py`` apply the reference's NCHW transpose / vertical
@@ -262,16 +262,13 @@ class RasterizeCore(torch.autograd.Function):
 
         grad_faces = grad_textures = grad_bg = None
         if need_faces:
-            grad_faces = torch.zeros(face_shape, dtype=torch.float32,
-                                     device=dev)
-            if k5:
-                with tracing.span('backward.scatter'):
-                    grad_faces = grad_faces + bwd.scatter_pixel_channels(
-                        sums[:, :12], bs, nf)
-            if k7:
-                off = 12 if k5 else 0
-                grad_faces = grad_faces + sums[:, off:off + 9].reshape(
-                    face_shape)
+            if sums is None:
+                # nothing drawn: no K5 or K7 term, the gradient is zeros
+                sums = torch.empty((bs * nf, 0), dtype=torch.float32,
+                                   device=dev)
+            with tracing.span('backward.scatter'):
+                grad_faces = backward_cuda.face_grad(
+                    sums, face_shape, k5, (12 if k5 else 0) if k7 else None)
         if need_tex:
             if k6_ts:
                 grad_textures = sums[:, -ts ** 3 * 3:].reshape(tex_shape)

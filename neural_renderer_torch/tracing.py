@@ -22,8 +22,8 @@ spans.  The spans are the layer boundaries of a call:
 
   * ``launch.<kernel>``: launches of each hand-written kernel
     (``forward_shaded``, ``forward_index``, ``bin_faces``, ``insweep``,
-    ``outsweep``, ``face_reduce``, ``segment_sum``, ``composite_pool``),
-    never a plain version's call;
+    ``outsweep``, ``face_reduce``, ``face_grad``, ``segment_sum``,
+    ``composite_pool``), never a plain version's call;
   * ``wait.copy.<site>``: copies of host data to the card made inside a
     call;
   * ``wait.read.<site>``: host reads of a value on the card;
