@@ -252,8 +252,6 @@ OUT_SIZE = 256                 # the main path's output; its raster is 2x
 RASTER = 2 * OUT_SIZE
 AZIMUTHS = [float(a) for a in range(0, 360, 45)]
 DISTANCE, ELEVATION = 2.732, 30.0
-KERNELS = ('forward_shaded', 'forward_index', 'backward_sweeps',
-           'face_reduce', 'bin_faces', 'segment_sum', 'composite_pool')
 # the benchmark's dense-mesh cell, which phase 12 runs at its own shape
 LARGE_CELL = 'icosphere163k.sil_train_b128'
 # the kernels a training step launches (the index kernel serves tune)
@@ -508,8 +506,8 @@ def _compare_bins(name, settings, faces):
     """The device setup and binning against its plain version on one scene,
     at the forward kernels' tile: both records bit-equal, the four lists
     equal, a repeat run bitwise equal.  Returns the number of pairs."""
-    tile = forward_cuda._kernel().nr_forward_shaded_tile()
-    _require(forward_cuda._index_kernel().nr_forward_index_tile() == tile,
+    tile = _build.library('forward_shaded').nr_forward_shaded_tile()
+    _require(_build.library('forward_index').nr_forward_index_tile() == tile,
              'the two forward kernels bin at different tiles')
     records = ('rec', 'irec')
     got = forward_cuda.bin_setup(settings, faces, tile, records)
@@ -1283,7 +1281,7 @@ def _large_mesh_phase(dev, smi, seed):
 
     is_ = bref.raster_size(cfg)
     settings = RasterizeSettings(image_size=is_)
-    tile = forward_cuda._kernel().nr_forward_shaded_tile()
+    tile = _build.library('forward_shaded').nr_forward_shaded_tile()
     nt_ = -(-is_ // tile)
     nf2 = 2 * prog.faces.shape[1]
     cells = bs * nt_ * nt_ * -(-nf2 // forward_cuda.BIN_CHUNK)
@@ -1977,7 +1975,7 @@ def _multiview_phase(dev, smi):
     del fct, fb
 
     # the binning at this size: (tile, chunk) cells, the sync's wait
-    tile = forward_cuda._kernel().nr_forward_shaded_tile()
+    tile = _build.library('forward_shaded').nr_forward_shaded_tile()
     cells = forward_cuda._bin_sizes(nv, fc.shape[1], raster, tile)[0]
     pairs = _compare_bins(f'multiview {raster}^2 bs {nv}', s, fc)
     times = _binning_times(f'of multiview, {nv} views at {raster}^2, nf '
@@ -2099,7 +2097,7 @@ def _composite_pool_phase(dev, smi, rng):
         bg = torch.zeros(3, device=dev)
         call = (s, m['face_index_map'], m['rgb'], m['depth_map'], bg, True)
         kept = kernel(*call)
-        lib = composite_pool._kernel()
+        lib = _build.library('composite_pool')
         stream = torch.cuda.current_stream(dev).cuda_stream
 
         def bare():
@@ -2201,7 +2199,7 @@ def _face_grad_phase(dev, smi, rng):
     plain_ms, bound_ms, bound_by, alone_ms, launches, extra}."""
     plain, kernel = backward_cuda.face_grad_plain, backward_cuda.face_grad
     gen = torch.Generator(device=dev).manual_seed(int(rng.randint(2 ** 31)))
-    lib = backward_cuda._reduce()
+    lib = _build.library('face_reduce')
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def seed_chain(sums, face_shape):
@@ -2339,14 +2337,9 @@ def main():
 
     # ---- 2. build ----
     t0 = time.time()
-    built = _build.build_all(KERNELS)
-    forward_cuda._kernel()
-    forward_cuda._index_kernel()
-    forward_cuda._binning()
-    backward_cuda._sweeps()
-    backward_cuda._reduce()
-    segments._kernel()
-    composite_pool._kernel()
+    built = _build.build_all(_build.LIBRARIES)
+    for name in _build.LIBRARIES:
+        _build.library(name)
     _log(f'build: {", ".join(p.name for p, _ in built.values())} in '
          f'{time.time() - t0:.1f} s')
     for name, (_, log) in built.items():
@@ -2431,8 +2424,8 @@ def main():
     times = {'forward_shaded': (ms, plain_ms)}
     alone = {'forward_shaded': kernel_only}
     library = {}
-    pairs32 = _binned_pairs(s512, fc32,
-                            forward_cuda._kernel().nr_forward_shaded_tile())
+    tile = _build.library('forward_shaded').nr_forward_shaded_tile()
+    pairs32 = _binned_pairs(s512, fc32, tile)
     pixels32 = BATCH * RASTER * RASTER
     # faces and texels read once; 17 words per pixel written
     bounds = {'forward_shaded': _bound(
@@ -2444,7 +2437,6 @@ def main():
 
     # the setup and binning alone, as forward_shaded runs it (the 18-float
     # records), at the main path's shape
-    tile = forward_cuda._kernel().nr_forward_shaded_tile()
     tile_pairs32 = _compare_bins(
         f'teapot {RASTER}^2 bs {BATCH} (main path shape)', s512, fc32)
 

@@ -5,7 +5,7 @@ Ushiku, Harada — CVPR 2018; reference implementation
 ``hiroharu-kato/neural_renderer``), ported from the JAX package beside it to
 PyTorch with hand-written CUDA kernels for NVIDIA Hopper.
 
-Ported so far: the forward render (camera transforms, lighting, the binned
+The package holds the forward render (camera transforms, lighting, the binned
 z-buffer with fused texture shading, ``csrc/forward_shaded.cu``, background
 composite and anti-aliasing, ``'approx'`` included) and its approximate
 backward through ``torch.autograd`` (the K5 sweeps,

@@ -10,6 +10,14 @@ or header is rebuilt and a built one is reused.
 Host code under ``csrc/`` (``*.cpp``: the OBJ parser) is built the same
 way by ``g++`` (``build_host``).
 
+This is the one module that knows how a kernel library is loaded and how
+its entry points are called: ``LIBRARIES`` holds every library's C
+signatures, ``library`` loads one with them declared, and ``launch``
+calls an entry point on the current stream of a tensor's device, raises
+on a CUDA error and counts the launch (``tracing``).  A test fakes a card
+launch on the CPU by patching ``library``, ``current_device`` and
+``raw_stream`` here.
+
 Flags: ``--fmad=false`` keeps every multiply and add separately rounded, as
 PyTorch's elementwise kernels round them, so the kernels agree with their
 plain PyTorch versions bit for bit; without it a fused multiply-add in an
@@ -19,6 +27,7 @@ never used: ``1/z`` and the depth divisions stay IEEE.
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -26,6 +35,44 @@ import shutil
 import subprocess
 
 import torch
+
+from neural_renderer_torch import tracing
+
+# the C types of the kernels' interfaces
+PTR, I32, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_SWEEP = (PTR, PTR, PTR, ctypes.POINTER(I64), PTR, ctypes.POINTER(I64), PTR,
+          I32, I32, F32, PTR, I64)
+# every kernel library under csrc/ with the C signatures of its entry
+# points: {library: {entry point: (restype, argtypes)}}
+LIBRARIES = {
+    'forward_shaded': {
+        'nr_forward_shaded':
+            (I32, (PTR,) * 4 + (I32,) * 4 + (F32,) * 3 + (PTR,) * 7),
+        'nr_forward_shaded_tile': (I32, ())},
+    'forward_index': {
+        'nr_forward_index':
+            (I32, (PTR,) * 3 + (I32,) * 3 + (F32,) * 2 + (PTR,) * 3),
+        'nr_forward_index_tile': (I32, ())},
+    'bin_faces': {
+        'nr_bin_cells': (I64, (I32,) * 4),
+        'nr_bin_scan_bytes': (I64, (I32,) * 4),
+        'nr_bin_count': (I32, (PTR,) + (I32,) * 4 + (PTR,) * 8 + (I64, PTR)),
+        'nr_bin_fill': (I32, (PTR,) * 3 + (I32,) * 5 + (PTR,) * 5)},
+    'backward_sweeps': {
+        'nr_insweep': (I32, _SWEEP + (PTR,)),
+        'nr_outsweep': (I32, _SWEEP + (I32, I32, I32, PTR)),
+        'nr_outsweep_smem_limit': (I32, ())},
+    'face_reduce': {
+        'nr_face_reduce': (I32, (PTR,) * 6 + (I32,) * 5 + (PTR,) * 3),
+        'nr_face_grad': (I32, (PTR, I64, I64, I32, I32, PTR, PTR)),
+        'nr_face_reduce_tile': (I32, ())},
+    'composite_pool': {
+        'nr_composite_pool':
+            (I32, (PTR,) * 4 + (I32,) * 3 + (I64, I32, I32) + (PTR,) * 4)},
+    'segment_sum': {
+        'nr_segment_sum': (I32, (PTR,) * 3 + (I64, I64, I32, PTR, PTR))},
+}
 
 _CSRC = pathlib.Path(__file__).resolve().parent / 'csrc'
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent / '_build'
@@ -110,16 +157,19 @@ def build_all(names):
     return done
 
 
-def build(name):
-    """``build_all`` for one kernel source: (library path, nvcc's output or
-    '' when reused)."""
-    return build_all([name])[name]
-
-
-def load(name):
-    """The ctypes handle of kernel library ``name``, built at first use."""
-    path, _ = build(name)
-    return ctypes.CDLL(str(path))
+@functools.cache
+def library(name):
+    """The ctypes handle of kernel library ``name``, built at first use,
+    with the C signatures of its entry points (``LIBRARIES``) and
+    ``nr_error_string``, which every library exports, declared.  Loaded
+    once."""
+    lib = ctypes.CDLL(str(build_all([name])[name][0]))
+    for entry, (restype, argtypes) in LIBRARIES[name].items():
+        fn = getattr(lib, entry)
+        fn.restype, fn.argtypes = restype, argtypes
+    lib.nr_error_string.restype = ctypes.c_char_p
+    lib.nr_error_string.argtypes = (I32,)
+    return lib
 
 
 def raise_on_error(lib, rc, name):
@@ -142,3 +192,24 @@ def raw_stream(index):
     """The current stream of CUDA device ``index`` as the ``cudaStream_t``
     a kernel's C interface takes, without making a ``torch.cuda.Stream``."""
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def call(lib, entry, index, *args):
+    """``lib.<entry>(*args, stream)`` on CUDA device ``index``, entered
+    only where it is not the current device, with its current stream last;
+    raises, naming ``entry``, where the entry point returns a CUDA error."""
+    with current_device(index):
+        rc = getattr(lib, entry)(*args, raw_stream(index))
+    raise_on_error(lib, rc, entry)
+
+
+def launch(lib, kernel, index, *args, entry=None):
+    """``call`` of ``entry`` (``nr_<kernel>`` when None), counted once as
+    ``tracing.COUNTS['launch.<kernel>']``."""
+    call(lib, entry or 'nr_' + kernel, index, *args)
+    tracing.COUNTS['launch.' + kernel] += 1
+
+
+def ptr(t):
+    """The device address of tensor ``t``, or None (a null pointer)."""
+    return None if t is None else t.data_ptr()

@@ -9,7 +9,8 @@ Per-face (flat) shading, not per-pixel — matching the reference exactly.
 import torch
 
 from neural_renderer_torch.ops.cross import cross
-from neural_renderer_torch.ops.transforms import _as_batched_vec3, _normalize
+from neural_renderer_torch.ops.transforms import _normalize
+from neural_renderer_torch.rasterize.config import place
 
 
 def lighting(
@@ -24,11 +25,13 @@ def lighting(
     bs, nf = faces.shape[:2]
     dev = faces.device
 
-    color_ambient = _as_batched_vec3(color_ambient, bs, dev,
-                                     'lighting.color_ambient')
-    color_directional = _as_batched_vec3(color_directional, bs, dev,
-                                         'lighting.color_directional')
-    direction = _as_batched_vec3(direction, bs, dev, 'lighting.direction')
+    # [3] (broadcast over the batch) or [bs, 3] each
+    color_ambient = place(color_ambient, dev,
+                          site='lighting.color_ambient').expand(bs, 3)
+    color_directional = place(color_directional, dev,
+                              site='lighting.color_directional').expand(bs, 3)
+    direction = place(direction, dev,
+                      site='lighting.direction').expand(bs, 3)
 
     light = torch.zeros((bs, nf, 3), dtype=torch.float32, device=dev)
 

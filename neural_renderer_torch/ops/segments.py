@@ -14,26 +14,10 @@ raises); a CPU tensor runs ``segment_sum_plain``, an ``index_add_``.
 ``tracing.COUNTS['launch.segment_sum']`` counts kernel launches.
 """
 
-import ctypes
-import functools
-
 import torch
 
-from neural_renderer_torch import _build, tracing
+from neural_renderer_torch import _build
 from neural_renderer_torch.rasterize.config import on_card
-
-
-@functools.cache
-def _kernel():
-    """The kernel's library, built at first use."""
-    lib = _build.load('segment_sum')
-    ptr = ctypes.c_void_p
-    lib.nr_segment_sum.argtypes = [ptr, ptr, ptr, ctypes.c_longlong,
-                                   ctypes.c_longlong, ctypes.c_int, ptr, ptr]
-    lib.nr_segment_sum.restype = ctypes.c_int
-    lib.nr_error_string.argtypes = [ctypes.c_int]
-    lib.nr_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def sort_segments(ids, nseg):
@@ -83,12 +67,7 @@ def segment_sum(rows, perm, offsets):
     n, C = rows.shape
     nseg = offsets.shape[0] - 1
     out = rows.new_empty((nseg, C))
-    lib = _kernel()
-    index = rows.get_device()
-    with _build.current_device(index):
-        rc = lib.nr_segment_sum(
-            rows.data_ptr(), perm.data_ptr(), offsets.data_ptr(), n, nseg, C,
-            out.data_ptr(), _build.raw_stream(index))
-    _build.raise_on_error(lib, rc, 'segment_sum')
-    tracing.COUNTS['launch.segment_sum'] += 1
+    _build.launch(_build.library('segment_sum'), 'segment_sum',
+                  rows.get_device(), rows.data_ptr(), perm.data_ptr(),
+                  offsets.data_ptr(), n, nseg, C, out.data_ptr())
     return out

@@ -17,9 +17,8 @@ import math
 
 import torch
 
-from neural_renderer_torch import tracing
 from neural_renderer_torch.ops.cross import cross
-from neural_renderer_torch.rasterize.config import as_tensors
+from neural_renderer_torch.rasterize.config import as_tensors, place
 
 # The reference normalizes with chainer.functions.normalize, which computes
 # x / (||x|| + eps) with eps = 1e-5.  We match it exactly.
@@ -37,20 +36,6 @@ def _normalize(x, dim=-1):
     safe = torch.where(positive, sumsq, torch.ones_like(sumsq))
     norm = torch.where(positive, torch.sqrt(safe), torch.zeros_like(sumsq))
     return x / (norm + _NORMALIZE_EPS)
-
-
-def _as_batched_vec3(v, batch_size, device, site):
-    """list/tuple/array/tensor -> [batch_size, 3] f32 tensor on ``device``
-    (1-D input is broadcast); a copy from the host is counted at ``site``
-    (``tracing.host_copy``)."""
-    with tracing.host_copy(site, v, device):
-        if isinstance(v, torch.Tensor):
-            v = v.to(device=device, dtype=torch.float32)
-        else:
-            v = torch.as_tensor(v, dtype=torch.float32, device=device)
-    if v.ndim == 1:
-        v = v[None, :].expand(batch_size, 3)
-    return v
 
 
 def _rotate(vertices, eye, r_rows):
@@ -85,9 +70,10 @@ def look_at(vertices, eye, at=None, up=None):
         at = [0.0, 0.0, 0.0]
     if up is None:
         up = [0.0, 1.0, 0.0]
-    eye = _as_batched_vec3(eye, bs, dev, 'look_at.eye')
-    at = _as_batched_vec3(at, bs, dev, 'look_at.at')
-    up = _as_batched_vec3(up, bs, dev, 'look_at.up')
+    # [3] (broadcast over the batch) or [bs, 3] each
+    eye = place(eye, dev, site='look_at.eye').expand(bs, 3)
+    at = place(at, dev, site='look_at.at').expand(bs, 3)
+    up = place(up, dev, site='look_at.up').expand(bs, 3)
 
     z_axis = _normalize(at - eye)
     x_axis = _normalize(cross(up, z_axis))
@@ -107,9 +93,9 @@ def look(vertices, eye, direction=None, up=None):
         direction = [0.0, 0.0, 1.0]
     if up is None:
         up = [0.0, 1.0, 0.0]
-    eye = _as_batched_vec3(eye, bs, dev, 'look.eye')
-    direction = _as_batched_vec3(direction, bs, dev, 'look.direction')
-    up = _as_batched_vec3(up, bs, dev, 'look.up')
+    eye = place(eye, dev, site='look.eye').expand(bs, 3)
+    direction = place(direction, dev, site='look.direction').expand(bs, 3)
+    up = place(up, dev, site='look.up').expand(bs, 3)
 
     z_axis = _normalize(direction)
     x_axis = _normalize(cross(up, z_axis))
@@ -124,9 +110,7 @@ def perspective(vertices, angle=30.0):
     literal 3.1416 (reproduced deliberately — golden-image parity).
     """
     _check_vertices(vertices)
-    with tracing.host_copy('perspective.angle', angle, vertices.device):
-        angle = torch.as_tensor(angle, dtype=torch.float32,
-                                device=vertices.device)
+    angle = place(angle, vertices.device, site='perspective.angle')
     angle = angle / 180.0 * 3.1416
     width = torch.tan(angle)
     # broadcast over [bs, nv]

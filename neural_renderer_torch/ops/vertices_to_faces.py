@@ -27,7 +27,7 @@ import torch.distributed as dist
 from neural_renderer_torch import tracing
 from neural_renderer_torch._collectives import all_reduce
 from neural_renderer_torch.ops import segments
-from neural_renderer_torch.rasterize.config import on_card
+from neural_renderer_torch.rasterize.config import on_card, place
 
 # face tensors whose sort is kept (a few meshes or renderers in turn)
 _SORTS_KEPT = 4
@@ -74,9 +74,8 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vertices, faces, group, fill_back):
         bs, nv = vertices.shape[:2]
-        with tracing.host_copy('vertices_to_faces.faces', faces,
-                               vertices.device):
-            f = faces.to(device=vertices.device, dtype=torch.int64)
+        f = place(faces, vertices.device, torch.int64,
+                  site='vertices_to_faces.faces')
         if fill_back:
             f = fill_back_faces(f)
         flat = _flat_index(f, nv)

@@ -1,11 +1,12 @@
 """Z-buffered triangle rasterizer and its approximate backward.
 
-  * ``forward_cuda.py`` — the forward: per-face records and tile binning in
-    PyTorch, then a hand-written CUDA kernel, ``csrc/forward_shaded.cu``
+  * ``forward_cuda.py`` — the forward: per-face records and tile binning
+    on the card (``csrc/bin_faces.cu``), then ``csrc/forward_shaded.cu``
     (z-buffer, winner attributes, K4 texture shading) or
-    ``csrc/forward_index.cu`` (face index and raw depth only); on a CPU
-    tensor their plain versions.  Also the JAX package's scene counters
-    (``binning_overflow``, ``chunks_needed``, ``csr_rows_needed``);
+    ``csrc/forward_index.cu`` (face index and raw depth only), all
+    hand-written CUDA kernels; on a CPU tensor their plain versions.
+    Also the JAX package's scene counters (``binning_overflow``,
+    ``chunks_needed``, ``csr_rows_needed``);
   * ``forward_dense.py`` — the dense argmin-z oracle (the plain versions'
     core, counterpart of the JAX package's ``forward_xla.py``);
   * ``texture.py`` — K4 texture sampling and the K6 texture gradient;

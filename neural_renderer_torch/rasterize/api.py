@@ -12,7 +12,6 @@ kernel on the card instead (``_render_pass``).
 import os
 import warnings
 
-import numpy as np
 import torch
 
 from neural_renderer_torch import tracing
@@ -25,7 +24,7 @@ from neural_renderer_torch.rasterize.config import (
     DEFAULT_NEAR,
     RasterizeSettings,
     on_card,
-    resolve_device,
+    place,
 )
 from neural_renderer_torch.rasterize import composite_pool, core
 from neural_renderer_torch.rasterize.core import rasterize_core
@@ -50,27 +49,12 @@ def use_unsafe_rasterizer(flag):
             'always deterministic (no atomics to trade away).')
 
 
-def _as_tensor(x, dtype=torch.float32, device=None, *, site):
-    """Tensor of ``dtype``; a tensor keeps its device unless one is given,
-    anything else (numpy array, list) lands on ``device`` (default: the
-    card, ``config.resolve_device``).  A copy from the host is counted at
-    ``site`` (``tracing.host_copy``)."""
-    if isinstance(x, torch.Tensor):
-        device = device or x.device
-        with tracing.host_copy(site, x, device):
-            return x.to(device=device, dtype=dtype)
-    device = resolve_device(device)
-    with tracing.host_copy(site, x, device):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-
-
 def _background_array(background_color, device):
     """Background color as an f32 tensor: [3] static or [bs, 3] per batch
     element (reference rasterize.py:462-465 supports both ndims)."""
     if background_color is None:
         background_color = DEFAULT_BACKGROUND_COLOR
-    arr = _as_tensor(background_color, device=device,
-                     site='api.background')
+    arr = place(background_color, device, site='api.background')
     if arr.ndim not in (1, 2) or arr.shape[-1] != 3:
         raise ValueError(
             'background_color must be an RGB triple [3] or per-batch '
@@ -161,12 +145,11 @@ def _render_pass(faces, textures, background, render_size, pool,
 def _prepare(faces, textures, return_rgb):
     """faces/textures as f32 tensors on faces' device, validated; a
     [bs, nf, 1, 1, 1, 3] zero placeholder when rgb is not drawn."""
-    faces = _as_tensor(faces, site='api.faces')
+    faces = place(faces, site='api.faces')
     if return_rgb:
         if textures is None:
             raise ValueError('textures are required when return_rgb=True')
-        textures = _as_tensor(textures, device=faces.device,
-                              site='api.textures')
+        textures = place(textures, faces.device, site='api.textures')
         _check_inputs(faces, textures, True)
     else:
         _check_inputs(faces, None, False)

@@ -33,51 +33,14 @@ is the coverage of ``face_index_map``.  Which terms enter follows
 ``settings.return_rgb`` / ``return_alpha``.
 """
 
-import ctypes
 import functools
 
 import torch
 
-from neural_renderer_torch import _build, tracing
+from neural_renderer_torch import _build
 from neural_renderer_torch.rasterize import backward as bwd
 from neural_renderer_torch.rasterize import texture as tex
 from neural_renderer_torch.rasterize.config import on_card
-
-
-@functools.cache
-def _sweeps():
-    """The sweep kernels' library, built at first use."""
-    lib = _build.load('backward_sweeps')
-    ptr, i32, f32, i64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_longlong)
-    strides = ctypes.POINTER(i64)
-    common = [ptr, ptr, ptr, strides, ptr, strides, ptr, i32, i32, f32, ptr,
-              i64]
-    lib.nr_insweep.argtypes = common + [ptr]
-    lib.nr_insweep.restype = i32
-    lib.nr_outsweep.argtypes = common + [i32, i32, i32, ptr]
-    lib.nr_outsweep.restype = i32
-    lib.nr_outsweep_smem_limit.argtypes = []
-    lib.nr_outsweep_smem_limit.restype = i32
-    lib.nr_error_string.argtypes = [i32]
-    lib.nr_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.cache
-def _reduce():
-    """The face-reduction kernels' library, built at first use."""
-    lib = _build.load('face_reduce')
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.nr_face_reduce.argtypes = [ptr] * 6 + [i32] * 5 + [ptr] * 3
-    lib.nr_face_reduce.restype = i32
-    lib.nr_face_grad.argtypes = [ptr, i64, i64, i32, i32, ptr, ptr]
-    lib.nr_face_grad.restype = i32
-    lib.nr_face_reduce_tile.argtypes = []
-    lib.nr_face_reduce_tile.restype = i32
-    lib.nr_error_string.argtypes = [i32]
-    lib.nr_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 # the out-sweep's crossing-list entries per detection group (3 edges of 2
@@ -138,30 +101,17 @@ def _smem_limit(device_index):
     """The dynamic shared memory an out-sweep block may take on CUDA device
     ``device_index``: its opt-in limit per block less the kernel's static
     shared memory."""
-    lib = _sweeps()
-    with torch.cuda.device(device_index):
+    lib = _build.library('backward_sweeps')
+    with _build.current_device(device_index):
         limit = lib.nr_outsweep_smem_limit()
     if limit <= 0:
         _build.raise_on_error(lib, -limit, 'smem query')
     return limit
 
 
-def _device_index(t):
-    return (t.device.index if t.device.index is not None
-            else torch.cuda.current_device())
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def _strides(t):
     """A map's 4 element strides as a C array (None for no map)."""
-    return None if t is None else (ctypes.c_longlong * 4)(*t.stride())
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return None if t is None else (_build.I64 * 4)(*t.stride())
 
 
 def _check_sweep_inputs(settings, xy, face_index_map, rgb, grad_rgb,
@@ -200,19 +150,17 @@ def _launch_sweep(name, settings, xy, face_index_map, rgb, grad_rgb,
     """Launch ``nr_<name>`` into ``out``.  rgb and grad rgb go in their own
     layout (any strides: the permuted NHWC maps need no copy); the other
     maps as dense tensors; None for the terms not drawn."""
-    lib = _sweeps()
     bs, is_ = face_index_map.shape[0], settings.image_size
     if not settings.return_rgb:
         rgb = grad_rgb = None
     xy, fim = xy.contiguous(), face_index_map.contiguous()
     ga = grad_alpha.contiguous() if settings.return_alpha else None
-    with torch.cuda.device(xy.device):
-        rc = getattr(lib, f'nr_{name}')(
-            xy.data_ptr(), fim.data_ptr(), _ptr(rgb), _strides(rgb),
-            _ptr(grad_rgb), _strides(grad_rgb), _ptr(ga), bs, is_,
-            settings.eps, out.data_ptr(), out.stride(0), *extra, _stream(xy))
-    _build.raise_on_error(lib, rc, name)
-    tracing.COUNTS['launch.' + name] += 1
+    ptr = _build.ptr
+    _build.launch(_build.library('backward_sweeps'), name,
+                  xy.get_device(), xy.data_ptr(), fim.data_ptr(), ptr(rgb),
+                  _strides(rgb), ptr(grad_rgb), _strides(grad_rgb), ptr(ga),
+                  bs, is_, settings.eps, out.data_ptr(), out.stride(0),
+                  *extra)
     return out
 
 
@@ -295,7 +243,7 @@ def _outsweep(settings, xy, face_index_map, rgb, grad_rgb, grad_alpha, out,
         out = torch.empty((bs, 12, is_, is_), dtype=torch.float32,
                           device=xy.device)
     plan = outsweep_plan(is_, settings.return_rgb, settings.return_alpha,
-                         _smem_limit(_device_index(xy)), cap, staged)
+                         _smem_limit(xy.get_device()), cap, staged)
     return _launch_sweep('outsweep', settings, xy, face_index_map, rgb,
                          grad_rgb, grad_alpha, out, int(accumulate),
                          int(plan['staged']), plan['cap'])
@@ -381,7 +329,7 @@ def face_reduce(stack, face_index_map, nf, ts=0, bins=None):
         return face_reduce_plain(stack, face_index_map, nf, ts)
     if bs * is_ * is_ >= 2 ** 31 or bs * nf >= 2 ** 31:
         raise ValueError('face_reduce indexes pixels and faces with int32')
-    lib = _reduce()
+    lib = _build.library('face_reduce')
     _check_bins(bins, bs, nf, is_, lib.nr_face_reduce_tile(), stack.device)
     stack = stack.contiguous()
     fim = face_index_map.contiguous()
@@ -389,14 +337,11 @@ def face_reduce(stack, face_index_map, nf, ts=0, bins=None):
                           device=stack.device)
     out = torch.empty((bs * nf, c_out), dtype=torch.float32,
                       device=stack.device)
-    with torch.cuda.device(stack.device):
-        rc = lib.nr_face_reduce(
-            stack.data_ptr(), fim.data_ptr(),
-            *(bins[k].data_ptr() for k in ('start', 'ids', 'order', 'first')),
-            bs, nf, is_, C, ts, partial.data_ptr(), out.data_ptr(),
-            _stream(stack))
-    _build.raise_on_error(lib, rc, 'face_reduce')
-    tracing.COUNTS['launch.face_reduce'] += 1
+    _build.launch(
+        lib, 'face_reduce', stack.get_device(), stack.data_ptr(),
+        fim.data_ptr(),
+        *(bins[k].data_ptr() for k in ('start', 'ids', 'order', 'first')),
+        bs, nf, is_, C, ts, partial.data_ptr(), out.data_ptr())
     return out
 
 
@@ -445,12 +390,7 @@ def face_grad(sums, face_shape, k5, k7_off=None):
     out = torch.empty(face_shape, dtype=torch.float32, device=sums.device)
     if n == 0:
         return out
-    lib = _reduce()
-    index = sums.get_device()
-    with _build.current_device(index):
-        rc = lib.nr_face_grad(sums.data_ptr(), sums.stride(0), n, int(k5),
-                              -1 if k7_off is None else k7_off,
-                              out.data_ptr(), _build.raw_stream(index))
-    _build.raise_on_error(lib, rc, 'face_grad')
-    tracing.COUNTS['launch.face_grad'] += 1
+    _build.launch(_build.library('face_reduce'), 'face_grad',
+                  sums.get_device(), sums.data_ptr(), sums.stride(0), n,
+                  int(k5), -1 if k7_off is None else k7_off, out.data_ptr())
     return out

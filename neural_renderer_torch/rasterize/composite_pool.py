@@ -19,27 +19,10 @@ CPU tensor ``composite_pool_plain``.  The kernel's sums follow the order of
 torch's CUDA mean (see the source), so both give the same bits.
 """
 
-import ctypes
-import functools
-
 import torch
 
-from neural_renderer_torch import _build, tracing
+from neural_renderer_torch import _build
 from neural_renderer_torch.rasterize.config import on_card
-
-
-@functools.cache
-def _kernel():
-    """The kernel's library, built at first use, with its C signature."""
-    lib = _build.load('composite_pool')
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.nr_composite_pool.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, ctypes.c_longlong, i32, i32,
-        ptr, ptr, ptr, ptr]
-    lib.nr_composite_pool.restype = i32
-    lib.nr_error_string.argtypes = [i32]
-    lib.nr_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def composite(rgb, covered, background):
@@ -147,26 +130,19 @@ def composite_pool(settings, cover, rgb, depth, background, pool):
     out = dict(rgb=empty(bs, 3, size, size) if settings.return_rgb else None,
                alpha=empty(bs, size, size) if settings.return_alpha else None,
                depth=empty(bs, size, size) if settings.return_depth else None)
-    lib = _kernel()
-    index = cover.get_device()
-    with _build.current_device(index):
-        rc = lib.nr_composite_pool(
-            cover.data_ptr(), _ptr(rgb if settings.return_rgb else None),
-            _ptr(depth if settings.return_depth else None),
-            _ptr(bg if settings.return_rgb else None), bs, is_, int(pool),
-            rgb_bstride, interleaved,
-            3 if settings.return_rgb and bg.ndim == 2 else 0,
-            _ptr(out['rgb']), _ptr(out['alpha']), _ptr(out['depth']),
-            _build.raw_stream(index))
-    _build.raise_on_error(lib, rc, 'composite_pool')
-    tracing.COUNTS['launch.composite_pool'] += 1
+    ptr = _build.ptr
+    _build.launch(
+        _build.library('composite_pool'), 'composite_pool',
+        cover.get_device(), cover.data_ptr(),
+        ptr(rgb if settings.return_rgb else None),
+        ptr(depth if settings.return_depth else None),
+        ptr(bg if settings.return_rgb else None), bs, is_, int(pool),
+        rgb_bstride, interleaved,
+        3 if settings.return_rgb and bg.ndim == 2 else 0,
+        ptr(out['rgb']), ptr(out['alpha']), ptr(out['depth']))
     return out
 
 
 def _require(cond, msg):
     if not cond:
         raise ValueError(msg)
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()

@@ -11,7 +11,10 @@ The port's entry points put what they build from non-tensor inputs on
 
 import dataclasses
 
+import numpy as np
 import torch
+
+from neural_renderer_torch import tracing
 
 DEFAULT_DEVICE = 'cuda'
 
@@ -29,22 +32,37 @@ def resolve_device(device=None):
     return dev
 
 
+def place(value, device=None, dtype=torch.float32, *, site=None):
+    """``value`` as a ``dtype`` tensor (``dtype`` None: a tensor's own, else
+    torch's choice).  A tensor keeps its device unless ``device`` (a
+    ``torch.device``) is given; anything else (number, list, numpy array)
+    lands on ``device``, else on the card (``resolve_device``), read through
+    ``np.asarray`` where ``dtype`` is given (a list of per-batch arrays is
+    one array).  Every counted host copy of the port is made here: a copy of
+    host data to the card is counted at ``site`` where one is given
+    (``tracing.host_copy``).
+    """
+    if not isinstance(value, torch.Tensor):
+        device = resolve_device(device)
+        if dtype is not None:
+            value = np.asarray(value)
+    elif device is None:
+        device = value.device
+    if site is None:
+        return torch.as_tensor(value, dtype=dtype, device=device)
+    with tracing.host_copy(site, value, device):
+        return torch.as_tensor(value, dtype=dtype, device=device)
+
+
 def as_tensors(values, dtype=None, device=None):
-    """``values`` as tensors (cast to ``dtype`` where given).  A tensor keeps
-    its device; anything else (number, list, numpy array) lands on
-    ``device``, else on the device of the first tensor among ``values``,
-    else on the card (``resolve_device``)."""
+    """``values`` placed (``place``, uncounted): a tensor keeps its device;
+    anything else lands on ``device``, else on the device of the first
+    tensor among ``values``, else on the card."""
     if device is None:
         device = next((v.device for v in values
                        if isinstance(v, torch.Tensor)), None)
-    out = []
-    for v in values:
-        if isinstance(v, torch.Tensor):
-            out.append(v if dtype is None else v.to(dtype))
-        else:
-            out.append(torch.as_tensor(v, dtype=dtype,
-                                       device=resolve_device(device)))
-    return out
+    return [place(v, None if isinstance(v, torch.Tensor) else device, dtype)
+            for v in values]
 
 
 def on_card(t):

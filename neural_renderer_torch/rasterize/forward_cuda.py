@@ -47,7 +47,6 @@ its Pallas forward's capacities, from its binning definitions (32-px
 patches, 128-face chunks, 16,384-face slices); ``tune`` reports them.
 """
 
-import ctypes
 import functools
 
 import torch
@@ -65,57 +64,6 @@ _CHUNK = 128
 # reference mesh.py:21); bigger cubes are sampled after it, as in the JAX
 # package (core.py:208)
 MAX_FUSED_TS = 4
-
-
-@functools.cache
-def _kernel():
-    """The kernel library, built at first use, with its C signatures."""
-    lib = _build.load('forward_shaded')
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nr_forward_shaded.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, f32,
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr]
-    lib.nr_forward_shaded.restype = i32
-    lib.nr_forward_shaded_tile.argtypes = []
-    lib.nr_forward_shaded_tile.restype = i32
-    lib.nr_error_string.argtypes = [i32]
-    lib.nr_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.cache
-def _index_kernel():
-    """The index-and-depth kernel's library, built at first use."""
-    lib = _build.load('forward_index')
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nr_forward_index.argtypes = [ptr, ptr, ptr, i32, i32, i32, f32, f32,
-                                     ptr, ptr, ptr]
-    lib.nr_forward_index.restype = i32
-    lib.nr_forward_index_tile.argtypes = []
-    lib.nr_forward_index_tile.restype = i32
-    lib.nr_error_string.argtypes = [i32]
-    lib.nr_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.cache
-def _binning():
-    """The setup and binning kernels' library, built at first use."""
-    lib = _build.load('bin_faces')
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.nr_bin_cells.argtypes = [i32] * 4
-    lib.nr_bin_cells.restype = i64
-    lib.nr_bin_scan_bytes.argtypes = [i32] * 4
-    lib.nr_bin_scan_bytes.restype = i64
-    lib.nr_bin_count.argtypes = ([ptr] + [i32] * 4 + [ptr] * 8 + [i64]
-                                 + [ptr])
-    lib.nr_bin_count.restype = i32
-    lib.nr_bin_fill.argtypes = [ptr] * 3 + [i32] * 5 + [ptr] * 5
-    lib.nr_bin_fill.restype = i32
-    lib.nr_error_string.argtypes = [i32]
-    lib.nr_error_string.restype = ctypes.c_char_p
-    return lib
-
 
 def _face_records(settings, faces):
     """Per-face records ``[bs, nf, 18]``: NDC xy of the 3 vertices, z0-2,
@@ -349,7 +297,7 @@ def _bin_setup(settings, faces, tile, records):
     nseg = bs * nf
     is_ = settings.image_size
     nt = -(-is_ // tile)
-    lib = _binning()
+    lib = _build.library('bin_faces')
     dev = faces.device
 
     def empty(*shape, dtype=torch.int32):
@@ -367,26 +315,21 @@ def _bin_setup(settings, faces, tile, records):
     temp = empty(max(temp_bytes, 1), dtype=torch.uint8)
     out['first'] = empty(nseg + 1)
     out['start'] = empty(bs * nt * nt + 1)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.nr_bin_count(
-            faces.data_ptr(), bs, nf, is_, tile, _ptr(out.get('rec')),
-            _ptr(out.get('irec')), rect.data_ptr(), count.data_ptr(),
-            box.data_ptr(), mask.data_ptr(), scan.data_ptr(),
-            temp.data_ptr(), temp_bytes, stream)
-        _build.raise_on_error(lib, rc, 'bin_faces count')
-        with tracing.wait('read', 'bin_total'):  # the forward's one sync
-            total = int(scan[nseg])
-        if total >= 2 ** 31:
-            raise ValueError(
-                f'{total} (tile, face) pairs overflow int32 offsets')
-        out['ids'], out['order'] = empty(total), empty(total)
-        rc = lib.nr_bin_fill(
-            rect.data_ptr(), scan.data_ptr(), mask.data_ptr(), bs, nf, is_,
-            tile, total, out['ids'].data_ptr(), out['order'].data_ptr(),
-            out['first'].data_ptr(), out['start'].data_ptr(), stream)
-        _build.raise_on_error(lib, rc, 'bin_faces fill')
-    tracing.COUNTS['launch.bin_faces'] += 1
+    index = faces.get_device()
+    _build.call(lib, 'nr_bin_count', index, faces.data_ptr(), bs, nf, is_,
+                tile, _build.ptr(out.get('rec')), _build.ptr(out.get('irec')),
+                rect.data_ptr(), count.data_ptr(), box.data_ptr(),
+                mask.data_ptr(), scan.data_ptr(), temp.data_ptr(), temp_bytes)
+    with tracing.wait('read', 'bin_total'):  # the forward's one sync
+        total = int(scan[nseg])
+    if total >= 2 ** 31:
+        raise ValueError(f'{total} (tile, face) pairs overflow int32 offsets')
+    out['ids'], out['order'] = empty(total), empty(total)
+    _build.launch(lib, 'bin_faces', index, rect.data_ptr(), scan.data_ptr(),
+                  mask.data_ptr(), bs, nf, is_, tile, total,
+                  out['ids'].data_ptr(), out['order'].data_ptr(),
+                  out['first'].data_ptr(), out['start'].data_ptr(),
+                  entry='nr_bin_fill')
     tracing.COUNTS['work.faces'] += nseg
     tracing.COUNTS['work.bin_pairs'] += total
     tracing.COUNTS['work.bin_cells'] += cells
@@ -396,7 +339,7 @@ def _bin_setup(settings, faces, tile, records):
 @functools.cache
 def _bin_sizes(bs, nf, is_, tile):
     """(tile, chunk) cells and CUB scratch bytes of ``nr_bin_count``."""
-    lib = _binning()
+    lib = _build.library('bin_faces')
     cells = lib.nr_bin_cells(bs, nf, is_, tile)
     temp_bytes = lib.nr_bin_scan_bytes(bs, nf, is_, tile)
     if cells < 0 or temp_bytes < 0:
@@ -473,39 +416,33 @@ def forward_shaded(settings, faces, textures=None):
     if textures is not None:
         out['rgb'] = empty(bs, 3, is_, is_)
     out['bins'] = _launch_binned(
-        _kernel(), 'forward_shaded', 'raster.shade', 'rec', settings, faces,
-        [_ptr(texc)],
+        'forward_shaded', 'raster.shade', 'rec', settings, faces,
+        [_build.ptr(texc)],
         [ts, settings.near, settings.far, ts - 1 - settings.eps],
         [out['face_index_map'], out['depth_map'], out['weights'], out['xy'],
          out['z'], out.get('rgb')])
     return out
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _launch_binned(lib, name, stage, record, settings, faces, inputs,
-                   scalars, outputs):
-    """Launch kernel ``name`` of ``lib`` on the binned tiles of ``faces``:
-    ``nr_<name>(records, start, ids, *inputs, bs, nf, is, *scalars,
-    *outputs, stream)``, with the per-face records (``record``: 'rec' or
-    'irec') and the CSR tile lists made on the card by ``bin_setup`` at the
-    kernel's tile size; the launch is the span ``stage``.  Raises if a
-    launch fails; counts ``launch.<name>`` otherwise.  Returns the tile
-    lists: dict(tile, start, ids, order, first) of ``bin_faces``."""
+def _launch_binned(name, stage, record, settings, faces, inputs, scalars,
+                   outputs):
+    """Launch kernel ``name`` (of library ``name``) on the binned tiles of
+    ``faces``: ``nr_<name>(records, start, ids, *inputs, bs, nf, is,
+    *scalars, *outputs, stream)``, with the per-face records
+    (``record``: 'rec' or 'irec') and the CSR tile lists made on the card by
+    ``bin_setup`` at the kernel's tile size; the launch is the span
+    ``stage``.  Returns the tile lists: dict(tile, start, ids, order,
+    first) of ``bin_faces``."""
+    lib = _build.library(name)
     bs, nf = faces.shape[:2]
     bins = bin_setup(settings, faces, getattr(lib, f'nr_{name}_tile')(),
                      records=(record,))
     rec = bins.pop(record)
-    with tracing.span(stage), torch.cuda.device(faces.device):
-        rc = getattr(lib, f'nr_{name}')(
-            rec.data_ptr(), bins['start'].data_ptr(), bins['ids'].data_ptr(),
-            *inputs, bs, nf, settings.image_size, *scalars,
-            *map(_ptr, outputs),
-            torch.cuda.current_stream(faces.device).cuda_stream)
-    _build.raise_on_error(lib, rc, name)
-    tracing.COUNTS['launch.' + name] += 1
+    with tracing.span(stage):
+        _build.launch(lib, name, faces.get_device(), rec.data_ptr(),
+                      bins['start'].data_ptr(), bins['ids'].data_ptr(),
+                      *inputs, bs, nf, settings.image_size, *scalars,
+                      *map(_build.ptr, outputs))
     return bins
 
 
@@ -548,9 +485,8 @@ def forward_face_index_map(settings, faces):
     shape = (faces.shape[0], settings.image_size, settings.image_size)
     idx = torch.empty(shape, dtype=torch.int32, device=faces.device)
     depth = torch.empty(shape, dtype=torch.float32, device=faces.device)
-    _launch_binned(_index_kernel(), 'forward_index', 'raster.index', 'irec',
-                   settings, faces, [], [settings.near, settings.far],
-                   [idx, depth])
+    _launch_binned('forward_index', 'raster.index', 'irec', settings, faces,
+                   [], [settings.near, settings.far], [idx, depth])
     return idx, depth
 
 

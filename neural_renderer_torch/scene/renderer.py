@@ -19,12 +19,12 @@ from neural_renderer_torch.ops.vertices_to_faces import (
     vertices_to_faces,
 )
 from neural_renderer_torch.rasterize.api import (
-    _as_tensor,
     rasterize,
     rasterize_depth,
     rasterize_rgbad,
     rasterize_silhouettes,
 )
+from neural_renderer_torch.rasterize.config import place
 
 
 class Renderer(object):
@@ -96,13 +96,13 @@ class Renderer(object):
         """vertices and textures as f32 tensors on the vertices' device;
         faces as a tensor (a caller's tensor is passed on as it is, so the
         vertex scatter keeps its sort, ``ops/vertices_to_faces.py``)."""
-        vertices = _as_tensor(vertices, site='renderer.vertices')
+        vertices = place(vertices, site='renderer.vertices')
         if not isinstance(faces, torch.Tensor):
-            faces = _as_tensor(faces, torch.int64, vertices.device,
-                               site='renderer.faces')
+            faces = place(faces, vertices.device, torch.int64,
+                          site='renderer.faces')
         if textures is not None:
-            textures = _as_tensor(textures, device=vertices.device,
-                                  site='renderer.textures')
+            textures = place(textures, vertices.device,
+                             site='renderer.textures')
         return vertices, faces, textures
 
     # ------------------------------------------------------------------

@@ -25,7 +25,7 @@ spans.  The spans are the layer boundaries of a call:
     ``outsweep``, ``face_reduce``, ``face_grad``, ``segment_sum``,
     ``composite_pool``), never a plain version's call;
   * ``wait.copy.<site>``: copies of host data to the card made inside a
-    call;
+    call, all by ``config.place``;
   * ``wait.read.<site>``: host reads of a value on the card;
   * ``work.faces``, ``work.bin_pairs``, ``work.bin_cells``: what the
     binning (``forward_cuda.bin_setup``) was handed and made: faces

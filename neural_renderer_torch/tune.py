@@ -29,8 +29,7 @@ import torch
 
 from neural_renderer_torch.ops.vertices_to_faces import vertices_to_faces
 from neural_renderer_torch.rasterize import backward, forward_cuda
-from neural_renderer_torch.rasterize.api import _as_tensor
-from neural_renderer_torch.rasterize.config import RasterizeSettings
+from neural_renderer_torch.rasterize.config import RasterizeSettings, place
 
 # the JAX package's default per-row out-sweep capacity
 # (RasterizeSettings.grad_row_cap there)
@@ -90,8 +89,8 @@ def tune(renderer, vertices, faces, eyes=None, margin=1.25, textures=None,
     or ``{}`` with ``measure=True``.  ``renderer.eye`` is restored.
     """
     del textures, measure_iters
-    vertices = _as_tensor(vertices, site='tune.vertices')
-    faces = _as_tensor(faces, torch.int64, vertices.device, site='tune.faces')
+    vertices = place(vertices, site='tune.vertices')
+    faces = place(faces, vertices.device, torch.int64, site='tune.faces')
     if vertices.ndim == 2:
         vertices = vertices[None]
     if faces.ndim == 2:

@@ -16,6 +16,7 @@ import torch
 import neural_renderer_torch as nt
 import neural_renderer_tpu as nr
 import utils
+from neural_renderer_torch.rasterize.config import as_tensors, place
 
 TEAPOT = os.path.join(utils.DATA_DIR, 'teapot.obj')
 NO_CARD = 'no CUDA device'
@@ -79,3 +80,23 @@ def test_cpu_when_asked(no_card):
     # a non-tensor operand lands beside the tensor one
     assert nt.cross(torch.as_tensor(v[0]), v[1]).device.type == 'cpu'
     assert nt.cross(v[0], v[1], device='cpu').device.type == 'cpu'
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.int64])
+def test_place_reads_a_list_of_arrays_or_tensors_as_one_array(dtype):
+    """A list of per-batch arrays, or of CPU tensors, is one host array
+    (numpy's reading, as the rasterizer's inputs always had)."""
+    rows = [np.arange(3.) + 3 * i for i in range(4)]
+    want = torch.as_tensor(np.stack(rows), dtype=dtype)
+    cpu = torch.device('cpu')
+    for value in (rows, [torch.as_tensor(r) for r in rows]):
+        got = place(value, cpu, dtype)
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_as_tensors_keeps_torch_dtypes():
+    """With no dtype asked, a list of floats is torch's float32 and a tensor
+    keeps its own dtype."""
+    a, b = as_tensors([[1., 2.], torch.zeros(2, dtype=torch.float64)])
+    assert (a.dtype, b.dtype) == (torch.float32, torch.float64)
+    assert a.device == b.device == torch.device('cpu')

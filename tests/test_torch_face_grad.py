@@ -14,7 +14,8 @@
   ``render_rgbad`` with gradients, on the teapot and on an icosphere of
   subdivision 2.
 * The wrapper rejects a wrong dtype, shape, term layout or device.
-* With ``on_card`` faked, a CPU tensor takes the launcher's route: a fake
+* With the card faked (``torch_fakes.fake_card``: ``on_card`` and ``_build``), a
+  CPU tensor takes the launcher's route: a fake
   library stands in for ``csrc/face_reduce.cu`` and computes each entry
   with the kernel's own indexing over the raw buffers, and
   ``launch.face_grad`` counts each launch (none for no faces).
@@ -23,7 +24,6 @@ The kernel itself runs only on the card: ``chip_smoke.py`` holds it to
 ``face_grad_plain`` bit for bit.
 """
 
-import contextlib
 import ctypes
 import os
 import pathlib
@@ -34,8 +34,9 @@ import pytest
 import torch
 
 import neural_renderer_torch as nt
+import torch_fakes
 import utils
-from neural_renderer_torch import _build, tracing
+from neural_renderer_torch import tracing
 from neural_renderer_torch.rasterize import backward_cuda
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
@@ -232,11 +233,7 @@ class _FakeReduce:
 @pytest.fixture
 def fake_card(monkeypatch):
     _FakeReduce.launches = 0
-    monkeypatch.setattr(backward_cuda, '_reduce', lambda: _FakeReduce)
-    monkeypatch.setattr(backward_cuda, 'on_card', lambda t: True)
-    monkeypatch.setattr(_build, 'current_device',
-                        lambda index: contextlib.nullcontext())
-    monkeypatch.setattr(_build, 'raw_stream', lambda index: 0)
+    torch_fakes.fake_card(monkeypatch, backward_cuda, _FakeReduce)
     tracing.reset()
     yield
     tracing.reset()

@@ -1,11 +1,11 @@
 """The port's spans and counters (``neural_renderer_torch/tracing.py``) on
 the CPU: each entry point's spans under ``torch.profiler`` with their
 parents, the shared null context with no profiler running, the counts a
-plain CPU render leaves (none), and the binning's work counts, with the
+plain CPU render leaves (none), the sites at which a render places its
+host values (``config.place``), and the binning's work counts, with the
 kernels of ``csrc/bin_faces.cu`` stood in for by a fake that writes the
 pair total where they do."""
 
-import contextlib
 import ctypes
 import os
 
@@ -15,6 +15,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import neural_renderer_torch as nt
+import torch_fakes
 import utils
 from neural_renderer_torch import tracing
 from neural_renderer_torch.rasterize import forward_cuda
@@ -122,6 +123,39 @@ def test_a_cpu_render_counts_nothing(scene):
     assert tracing.counts() == {}
 
 
+# the host values a render places, in order: (site, device) of each
+# tracing.host_copy call of a CPU render of the teapot (its faces a tensor)
+_LIT = [('renderer.vertices', 'cpu'), ('renderer.textures', 'cpu'),
+        ('vertices_to_faces.faces', 'cpu'), ('lighting.color_ambient', 'cpu'),
+        ('lighting.color_directional', 'cpu'),
+        ('lighting.direction', 'cpu')]
+_CAMERA = [('look_at.eye', 'cpu'), ('look_at.at', 'cpu'),
+           ('look_at.up', 'cpu'), ('perspective.angle', 'cpu')]
+_TEXTURED = _LIT + _CAMERA + [('api.faces', 'cpu'), ('api.textures', 'cpu'),
+                              ('api.background', 'cpu')]
+PLACED = {
+    'render': _TEXTURED, 'render_rgbad': _TEXTURED,
+    'render_silhouettes': [('renderer.vertices', 'cpu')] + _CAMERA + [
+        ('vertices_to_faces.faces', 'cpu'), ('api.faces', 'cpu'),
+        ('api.background', 'cpu')],
+}
+
+
+@pytest.mark.parametrize('entry', sorted(PLACED))
+def test_a_render_places_its_host_values_at_its_sites(scene, monkeypatch,
+                                                      entry):
+    placed = []
+    host_copy = tracing.host_copy
+
+    def record(site, value, device):
+        placed.append((site, str(device)))
+        return host_copy(site, value, device)
+
+    monkeypatch.setattr(tracing, 'host_copy', record)
+    _call(entry, scene, False)
+    assert placed == PLACED[entry]
+
+
 def test_waits_are_counted_and_marked():
     tracing.reset()
     cpu, card = torch.device('cpu'), torch.device('cuda')
@@ -182,13 +216,7 @@ def test_binning_counts_its_work(monkeypatch, bs, nf):
         -1.0, 1.0, (bs, nf, 3, 3)), dtype=torch.float32)
     fc[..., 2] = fc[..., 2].abs() + 1.0
     total = forward_cuda.bin_faces(settings, fc, tile)[1].numel()
-    monkeypatch.setattr(forward_cuda, '_binning',
-                        lambda: _FakeBinning(total))
-    monkeypatch.setattr(forward_cuda, 'on_card', lambda t: True)
-    monkeypatch.setattr(torch.cuda, 'current_stream',
-                        lambda dev: type('S', (), {'cuda_stream': 0}))
-    monkeypatch.setattr(torch.cuda, 'device',
-                        lambda dev: contextlib.nullcontext())
+    torch_fakes.fake_card(monkeypatch, forward_cuda, _FakeBinning(total))
     forward_cuda._bin_sizes.cache_clear()
     tracing.reset()
     try:
