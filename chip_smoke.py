@@ -183,7 +183,16 @@ Phases (any failure exits non-zero; progress goes to stdout):
      apart than the columns read; timed alone (CUDA events around bare
      launches), as a call, against the plain version and the chain the port
      ran before it, with its byte bound; a training step launches it once,
-     a render under no_grad never (phase 22: a config-5 call never).
+     a render under no_grad never (phase 22: a config-5 call never);
+ 24. host values kept on the card (``config.place``), in each benchmark
+     cell at its own shape through ``benchmark.harness.Program``: a warmed
+     call copies no host value and finds 7 kept (4 in the silhouette
+     cell), and reads the pair total once; its images and gradients are
+     bit-equal to the same call with nothing kept; a render after the
+     ``Renderer``'s light direction, a light colour (written in place),
+     background and angle change is bit-equal to a fresh ``Renderer``'s
+     with nothing kept, and differs from the render before the change;
+     calls timed with and without keeping, in turns (no claim).
 
 Every profiler window is padded with idle host time at both ends
 (``_profile``); a window that caught none of a kernel's launches is logged
@@ -2313,6 +2322,148 @@ def _face_grad_phase(dev, smi, rng):
                            shapes_bit_equal=cases))
 
 
+# the benchmark's cells (phase 24) and the host values each call places
+KEPT_CELLS = {'multiview.rgbad_v64': 7, 'teapot.train_b128': 7,
+              LARGE_CELL: 4}
+
+
+@contextlib.contextmanager
+def _nothing_kept():
+    """``config.place`` with an empty table that keeps nothing: every host
+    value is copied, as before values were kept."""
+    from neural_renderer_torch.rasterize import config
+    size, placed = config._PLACED_KEPT, config._PLACED.copy()
+    config._PLACED.clear()
+    config._PLACED_KEPT = 0
+    try:
+        yield
+    finally:
+        config._PLACED_KEPT = size
+        config._PLACED.clear()
+        config._PLACED.update(placed)
+
+
+def _all_bits_equal(a, b):
+    """``_bits_equal`` of two images or of two dicts of them, key by key."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_bits_equal(a[k], b[k])
+                                            for k in a)
+    return _bits_equal(a, b)
+
+
+def _kept_phase(dev, smi, seed):
+    """Phase 24: host values kept on the card, in each of ``KEPT_CELLS`` at
+    its own shape, driven by the benchmark's ``harness.Program``.  A warmed
+    call copies none and finds each kept (``kept.<site>``), and reads the
+    binning's pair total once; its images and gradients are bit-equal to
+    the same call with nothing kept (``_nothing_kept``); after the light
+    direction, a light colour (written in place), the background and the
+    angle change, a render is bit-equal to a fresh ``Renderer``'s with
+    nothing kept and differs from the one before.  Calls are timed with and
+    without keeping, in turns (no claim)."""
+    from benchmark import harness
+    from neural_renderer_torch.rasterize import config
+    bench = harness.load_bench(ROOT)
+    for name, sites in KEPT_CELLS.items():
+        # each cell from an empty table, as a run of it starts
+        config._PLACED.clear()
+        _, cfg, mix = harness.load_cell(bench, name, ROOT)
+        prog = harness.Program(nt, cfg, mix, seed, dev)
+        prog.call(0)                              # warm-up
+        torch.cuda.synchronize()
+        tracing.reset()
+        out, grads = prog.call(1)
+        torch.cuda.synchronize()
+        counts = tracing.counts()
+        copies = {k: n for k, n in counts.items()
+                  if k.startswith('wait.copy.')}
+        kept = {k: n for k, n in counts.items() if k.startswith('kept.')}
+        _require(not copies and sum(kept.values()) == sites
+                 and all(n == 1 for n in kept.values())
+                 and counts.get('wait.read.bin_total') == 1,
+                 f'{name}: a warmed call counts {counts}; want no copy, '
+                 f'{sites} host values kept and one read of bin_total')
+        with _nothing_kept():
+            tracing.reset()
+            out0, grads0 = prog.call(1)
+            torch.cuda.synchronize()
+            copied = sum(n for k, n in tracing.counts().items()
+                         if k.startswith('wait.copy.'))
+        _require(copied == sites, f'{name}: with nothing kept a call '
+                 f'copied {copied} host values; want {sites}')
+        _require(_all_bits_equal(out, out0), f'{name}: images differ '
+                 'from the same call with nothing kept')
+        for g in grads:
+            _require(_bits_equal(grads[g], grads0[g]), f'{name}: the '
+                     f'gradient of {g} differs with nothing kept')
+        del out0, grads0
+
+        def turns(reps=20):
+            ms = {True: [], False: []}
+            for _ in range(3):
+                for keep in (True, False):
+                    with contextlib.nullcontext() if keep \
+                            else _nothing_kept():
+                        prog.synchronize()
+                        t0 = time.perf_counter()
+                        for i in range(reps):
+                            prog.call(i)
+                        prog.synchronize()
+                    ms[keep].append((time.perf_counter() - t0) * 1e3 / reps)
+            return {k: sorted(v)[1] for k, v in ms.items()}
+
+        ms = turns()
+
+        # the same eye, the Renderer's host values changed
+        r = prog.renderer
+        args = [prog.leaves['vertices'].detach(), prog.faces]
+        if mix['entry'] != 'render_silhouettes':
+            args.append(prog.leaves['textures'].detach())
+        changed = dict(light_direction=[0.3, 0.8, -0.5],
+                       background_color=[0.25, 0.5, 0.75],
+                       viewing_angle=25)
+        with torch.no_grad():
+            r.eye = prog.eye(1)
+            before = getattr(r, mix['entry'])(*args)
+            for key, value in changed.items():
+                setattr(r, key, value)
+            r.light_color_directional[2] = 0.5
+            changed['light_color_directional'] = list(
+                r.light_color_directional)
+            tracing.reset()
+            after = getattr(r, mix['entry'])(*args)
+            recopied = sum(n for k, n in tracing.counts().items()
+                           if k.startswith('wait.copy.'))
+            fresh = nt.Renderer()
+            for key in ('image_size', 'anti_aliasing', 'fill_back', 'near',
+                        'far', 'rasterizer_eps'):
+                setattr(fresh, key, cfg[key])
+            for key, value in changed.items():
+                setattr(fresh, key, value)
+            fresh.eye = r.eye
+            with _nothing_kept():
+                want = getattr(fresh, mix['entry'])(*args)
+            torch.cuda.synchronize()
+        # a silhouette's call reads no light, and its background is the
+        # rasterizer's default, not the Renderer's: only the angle changed
+        resites = 4 if sites == 7 else 1
+        _require(recopied == resites, f'{name}: the changed Renderer '
+                 f'copied {recopied} host values; want {resites}')
+        _require(_all_bits_equal(after, want), f'{name}: a render after '
+                 "the Renderer changed differs from a fresh Renderer's")
+        _require(not _all_bits_equal(after, before),
+                 f'{name}: the changed Renderer renders as before')
+        _log(f'kept host values ({name}) on {smi}: a warmed call copies '
+             f'none, keeps {kept}, reads bin_total once; images and '
+             f'gradients ({sorted(grads)}) bit-equal with nothing kept '
+             f'({copied} copies then); after the Renderer changed '
+             f'({sorted(changed)}; {recopied} copies) bit-equal to a fresh '
+             f"Renderer's; ms a call (median of 3 turns of 20 calls), kept "
+             f'{ms[True]:.4f}, nothing kept {ms[False]:.4f} (no claim)')
+        del prog, out, grads, before, after, want
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -3320,6 +3471,10 @@ def main():
     # ---- 23. the face gradient's assembly ----
     torch.cuda.empty_cache()
     fgrad = _face_grad_phase(dev, smi, rng)
+
+    # ---- 24. host values kept on the card ----
+    torch.cuda.empty_cache()
+    _kept_phase(dev, smi, args.seed)
 
     sources = {
         'forward_shaded': ('neural_renderer_torch/csrc/forward_shaded.cu',

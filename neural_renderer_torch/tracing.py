@@ -26,6 +26,10 @@ spans.  The spans are the layer boundaries of a call:
     ``composite_pool``), never a plain version's call;
   * ``wait.copy.<site>``: copies of host data to the card made inside a
     call, all by ``config.place``;
+  * ``kept.<site>``: host values that ``config.place`` found already on the
+    card, kept from an earlier copy of the same bytes, and handed back with
+    no copy and no wait (its share at a site: ``kept.<site>`` over
+    ``kept.<site>`` + ``wait.copy.<site>``);
   * ``wait.read.<site>``: host reads of a value on the card;
   * ``work.faces``, ``work.bin_pairs``, ``work.bin_cells``: what the
     binning (``forward_cuda.bin_setup``) was handed and made: faces
@@ -73,6 +77,11 @@ def host_copy(site, value, device):
             isinstance(value, torch.Tensor) and value.is_cuda):
         return wait('copy', site)
     return _OFF
+
+
+def kept(site):
+    """Count one host value found kept on the card, ``kept.<site>``."""
+    COUNTS[f'kept.{site}'] += 1
 
 
 def counts():

@@ -2,7 +2,9 @@
 the CPU: each entry point's spans under ``torch.profiler`` with their
 parents, the shared null context with no profiler running, the counts a
 plain CPU render leaves (none), the sites at which a render places its
-host values (``config.place``), and the binning's work counts, with the
+host values (``config.place``), the host values kept on the card from one
+call to the next (its card route driven on the CPU by
+``torch_fakes.fake_card_place``), and the binning's work counts, with the
 kernels of ``csrc/bin_faces.cu`` stood in for by a fake that writes the
 pair total where they do."""
 
@@ -18,6 +20,7 @@ import neural_renderer_torch as nt
 import torch_fakes
 import utils
 from neural_renderer_torch import tracing
+from neural_renderer_torch.rasterize import config
 from neural_renderer_torch.rasterize import forward_cuda
 from neural_renderer_torch.rasterize.config import RasterizeSettings
 
@@ -133,12 +136,22 @@ _CAMERA = [('look_at.eye', 'cpu'), ('look_at.at', 'cpu'),
            ('look_at.up', 'cpu'), ('perspective.angle', 'cpu')]
 _TEXTURED = _LIT + _CAMERA + [('api.faces', 'cpu'), ('api.textures', 'cpu'),
                               ('api.background', 'cpu')]
+_UNLIT = [('renderer.vertices', 'cpu')] + _CAMERA + [
+    ('vertices_to_faces.faces', 'cpu'), ('api.faces', 'cpu'),
+    ('api.background', 'cpu')]
 PLACED = {
     'render': _TEXTURED, 'render_rgbad': _TEXTURED,
-    'render_silhouettes': [('renderer.vertices', 'cpu')] + _CAMERA + [
-        ('vertices_to_faces.faces', 'cpu'), ('api.faces', 'cpu'),
-        ('api.background', 'cpu')],
+    'render_silhouettes': _UNLIT, 'render_depth': _UNLIT,
 }
+# the sites of PLACED that take host values (the Renderer's lists and
+# numbers); the others take the scene's tensors, already on the card
+HOST_SITES = {'lighting.color_ambient', 'lighting.color_directional',
+              'lighting.direction', 'look_at.at', 'look_at.up',
+              'perspective.angle', 'api.background'}
+
+
+def _card_sites(entry):
+    return [s for s, _ in PLACED[entry] if s in HOST_SITES]
 
 
 @pytest.mark.parametrize('entry', sorted(PLACED))
@@ -179,6 +192,108 @@ def test_waits_are_counted_and_marked():
                              'nr.wait.read.probe']
     tracing.reset()
     assert tracing.counts() == {}
+
+
+def test_kept_values_are_counted_apart():
+    tracing.reset()
+    tracing.kept('probe')
+    tracing.kept('probe')
+    assert tracing.counts() == {'kept.probe': 2}
+    tracing.reset()
+
+
+@pytest.mark.parametrize('entry', sorted(PLACED))
+def test_a_second_call_keeps_every_host_value(scene, monkeypatch, entry):
+    """On the card the first call copies each distinct host value once;
+    the second copies none and finds each kept at exactly its card
+    sites: 7 with lighting, 4 without."""
+    torch_fakes.fake_card_place(monkeypatch)
+    sites = _card_sites(entry)
+    assert len(sites) == (7 if WANT[entry][1] else 4)
+    tracing.reset()
+    _call(entry, scene, entry in BACKWARD_OF)
+    first = tracing.counts()
+    assert set(first) <= {f'{k}.{s}' for k in ('wait.copy', 'kept')
+                          for s in sites}
+    assert sum(first.values()) == len(sites)
+    tracing.reset()
+    _call(entry, scene, entry in BACKWARD_OF)
+    assert tracing.counts() == {f'kept.{s}': 1 for s in sites}
+    tracing.reset()
+
+
+def test_a_render_and_its_backward_leave_kept_values_as_kept(scene,
+                                                              monkeypatch):
+    torch_fakes.fake_card_place(monkeypatch)
+    _call('render', scene, True)
+    kept = {k: t.clone() for k, (t, _) in config._PLACED.items()}
+    assert kept
+    _call('render', scene, True)
+    _call('render_rgbad', scene, False)
+    assert set(config._PLACED) == set(kept)
+    for k, (t, version) in config._PLACED.items():
+        assert t.dtype == kept[k].dtype and t._version == version
+        assert torch.equal(t.view(-1).view(torch.uint8),
+                           kept[k].view(-1).view(torch.uint8))
+
+
+def test_an_inference_render_then_a_training_step(scene, monkeypatch):
+    """Nothing placed in inference mode is kept, so the training step
+    after it saves no inference tensor for its backward."""
+    torch_fakes.fake_card_place(monkeypatch)
+    r, v, f, tx = scene
+    with torch.inference_mode():
+        r.render(v, f, tx)
+    assert not config._PLACED
+    _call('render', scene, True)
+    assert config._PLACED
+    assert not any(t.is_inference() for t, _ in config._PLACED.values())
+    with torch.inference_mode():
+        r.render(v, f, tx)
+    _call('render', scene, True)
+
+
+def _renderer(**attrs):
+    r = nt.Renderer()
+    r.image_size = 16
+    r.eye = torch.tensor([0.0, 0.5, -2.7])
+    for k, a in attrs.items():
+        setattr(r, k, a)
+    return r
+
+
+CHANGES = {
+    'light_direction': ('lighting.direction', [0.3, 0.8, -0.5]),
+    'light_color_ambient': ('lighting.color_ambient', [0.2, 0.4, 1.0]),
+    'background_color': ('api.background', [0.5, 0.25, 1.0]),
+    'viewing_angle': ('perspective.angle', 20),
+}
+
+
+@pytest.mark.parametrize('attr', sorted(CHANGES) + ['mutated in place'])
+def test_a_changed_renderer_renders_its_new_values(scene, monkeypatch,
+                                                   attr):
+    """A Renderer attribute changed between calls, or a list of it written
+    in place, is copied anew and drawn as a fresh Renderer draws it."""
+    torch_fakes.fake_card_place(monkeypatch)
+    _, v, f, tx = scene
+    r = _renderer()
+    r.render(v, f, tx)
+    tracing.reset()
+    if attr == 'mutated in place':
+        site, attrs = 'lighting.color_directional', {}
+        r.light_color_directional[0] = 0.125
+        attrs['light_color_directional'] = [0.125, 1, 1]
+    else:
+        site, value = CHANGES[attr]
+        setattr(r, attr, value)
+        attrs = {attr: value}
+    got = r.render(v, f, tx)
+    assert tracing.counts()[f'wait.copy.{site}'] == 1
+    monkeypatch.setattr(config, '_PLACED', type(config._PLACED)())
+    assert torch.equal(got, _renderer(**attrs).render(v, f, tx))
+    assert not torch.equal(got, _renderer().render(v, f, tx))
+    tracing.reset()
 
 
 class _FakeBinning:

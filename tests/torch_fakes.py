@@ -1,8 +1,12 @@
 """A fake card for the port's tests on the CPU."""
 
+import collections
 import contextlib
 
-from neural_renderer_torch import _build
+import torch
+
+from neural_renderer_torch import _build, tracing
+from neural_renderer_torch.rasterize import config
 
 
 def fake_card(monkeypatch, module, lib):
@@ -14,3 +18,19 @@ def fake_card(monkeypatch, module, lib):
     monkeypatch.setattr(_build, 'current_device',
                         lambda index: contextlib.nullcontext())
     monkeypatch.setattr(_build, 'raw_stream', lambda index: 0)
+
+
+def fake_card_place(monkeypatch):
+    """Send ``config.place``'s CPU targets down a card's route, from an
+    empty table of kept values: a host value placed on the CPU is kept as
+    on card ``index[0]`` (0; a test may change it) and its copy is counted
+    as a copy to the card, while a tensor counts as one already there.
+    Returns ``index``."""
+    index = [0]
+    monkeypatch.setattr(config, '_card_index', lambda device: index[0])
+    monkeypatch.setattr(config, '_PLACED', collections.OrderedDict())
+    monkeypatch.setattr(
+        tracing, 'host_copy',
+        lambda site, value, device: tracing._OFF
+        if isinstance(value, torch.Tensor) else tracing.wait('copy', site))
+    return index
