@@ -37,7 +37,7 @@ import functools
 
 import torch
 
-from neural_renderer_torch import _build
+from neural_renderer_torch import _build, tracing
 from neural_renderer_torch.rasterize import backward as bwd
 from neural_renderer_torch.rasterize import texture as tex
 from neural_renderer_torch.rasterize.config import on_card
@@ -313,7 +313,9 @@ def face_reduce(stack, face_index_map, nf, ts=0, bins=None):
     ``tile``, ``start``, ``ids``, ``order``, ``first``), which hold every
     covered pixel's winner.  Required on the card, where the kernel sums
     each (tile, face) pair and then each face's pairs, deterministically
-    (no float atomics, no sort of the raster); ignored on the CPU."""
+    (no float atomics, no sort of the raster); ignored on the CPU.  On the
+    card a reduction with ``ts`` > 0 counts the texture cells its factor
+    expansion writes, ``bs * nf * ts^3``, as ``work.k6_cells``."""
     bs, C, is_ = stack.shape[0], stack.shape[1], stack.shape[2]
     if (stack.dtype != torch.float32 or stack.ndim != 4
             or stack.shape[3] != is_
@@ -342,6 +344,8 @@ def face_reduce(stack, face_index_map, nf, ts=0, bins=None):
         fim.data_ptr(),
         *(bins[k].data_ptr() for k in ('start', 'ids', 'order', 'first')),
         bs, nf, is_, C, ts, partial.data_ptr(), out.data_ptr())
+    if ts:
+        tracing.COUNTS['work.k6_cells'] += bs * nf * ts ** 3
     return out
 
 

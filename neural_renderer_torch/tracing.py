@@ -35,7 +35,11 @@ spans.  The spans are the layer boundaries of a call:
     binning (``forward_cuda.bin_setup``) was handed and made: faces
     (``bs * nf``, after fill_back), (tile, face) pairs, and the (tile,
     128-face chunk) cells its kernels scan, all known on the host without a
-    further wait.
+    further wait;
+  * ``work.k6_cells``: the texture cells (``bs * nf * ts^3``) whose sums
+    the per-face reduction (``backward_cuda.face_reduce``) expands from the
+    K6 factors, wherever textures of ``ts`` > 0 get a gradient through it;
+    none in a silhouette step or under no_grad.  A shape the host knows.
 
 The plain CPU paths count nothing.
 """

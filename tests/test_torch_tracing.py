@@ -4,9 +4,11 @@ parents, the shared null context with no profiler running, the counts a
 plain CPU render leaves (none), the sites at which a render places its
 host values (``config.place``), the host values kept on the card from one
 call to the next (its card route driven on the CPU by
-``torch_fakes.fake_card_place``), and the binning's work counts, with the
+``torch_fakes.fake_card_place``), the binning's work counts, with the
 kernels of ``csrc/bin_faces.cu`` stood in for by a fake that writes the
-pair total where they do."""
+pair total where they do, and the texture cells the per-face reduction
+expands (``work.k6_cells``), with the backward's kernels stood in for by
+a fake that launches nothing."""
 
 import ctypes
 import os
@@ -20,7 +22,7 @@ import neural_renderer_torch as nt
 import torch_fakes
 import utils
 from neural_renderer_torch import tracing
-from neural_renderer_torch.rasterize import config
+from neural_renderer_torch.rasterize import backward_cuda, config
 from neural_renderer_torch.rasterize import forward_cuda
 from neural_renderer_torch.rasterize.config import RasterizeSettings
 
@@ -344,3 +346,84 @@ def test_binning_counts_its_work(monkeypatch, bs, nf):
         'work.faces': bs * nf, 'work.bin_pairs': total,
         'work.bin_cells': bs * 4 * 4 * -(-nf // 128)}
     tracing.reset()
+
+
+class _FakeBackward:
+    """The entry points of ``csrc/backward_sweeps.cu`` and
+    ``csrc/face_reduce.cu`` on CPU tensors: each launch returns success and
+    writes nothing, so only what the wrappers count is read."""
+
+    @staticmethod
+    def nr_outsweep_smem_limit():
+        return 227 * 1024
+
+    @staticmethod
+    def nr_face_reduce_tile():
+        return 16
+
+    @staticmethod
+    def nr_insweep(*args):
+        return 0
+
+    nr_outsweep = nr_face_reduce = nr_face_grad = nr_insweep
+
+
+@pytest.fixture
+def fake_backward(monkeypatch):
+    """The backward's kernels on a faked card, fed the forward's tile lists
+    as the card's forward hands them over (``forward_shaded(...)['bins']``,
+    here from ``bin_faces`` at the fake's 16-pixel tiles)."""
+    plain = forward_cuda.forward_shaded
+
+    def with_bins(settings, faces, textures=None):
+        out = plain(settings, faces, textures)
+        out['bins'] = dict(zip(('start', 'ids', 'order', 'first'),
+                               forward_cuda.bin_faces(settings, faces, 16)),
+                           tile=16)
+        return out
+
+    monkeypatch.setattr(forward_cuda, 'forward_shaded', with_bins)
+    torch_fakes.fake_card(monkeypatch, backward_cuda, _FakeBackward)
+    backward_cuda._smem_limit.cache_clear()
+    tracing.reset()
+    yield
+    backward_cuda._smem_limit.cache_clear()
+    tracing.reset()
+
+
+def _textured_step(scene, ts, backward):
+    r, v, f, _ = scene
+    tx = torch.rand((2, f.shape[1], ts, ts, ts, 3),
+                    generator=torch.Generator().manual_seed(ts))
+    v = v.repeat(2, 1, 1).requires_grad_(backward)
+    tx.requires_grad_(backward)
+    with torch.set_grad_enabled(backward):
+        out = r.render(v, f.repeat(2, 1, 1), tx)
+    if backward:
+        torch.autograd.grad(out.sum(), [v, tx])
+
+
+@pytest.mark.parametrize('ts', [2, 4])
+def test_k6_cells_count_the_expanded_texture_cells(scene, fake_backward,
+                                                   ts):
+    _textured_step(scene, ts, True)
+    nf = 2 * scene[2].shape[1]  # after fill_back
+    assert tracing.counts()['launch.face_reduce'] == 1
+    assert tracing.counts()['work.k6_cells'] == 2 * nf * ts ** 3
+
+
+@pytest.mark.parametrize('step', ['silhouettes', 'no_grad', 'ts5'])
+def test_k6_cells_count_nothing_off_the_factor_path(scene, fake_backward,
+                                                    step):
+    """A silhouette step reduces with no texture cells, a render under
+    no_grad has no backward, and a cube above ts 4 takes the 8-corner
+    scatter in place of the factors."""
+    if step == 'silhouettes':
+        r, v, f, _ = scene
+        v = v.clone().requires_grad_(True)
+        torch.autograd.grad(r.render_silhouettes(v, f).sum(), [v])
+    else:
+        _textured_step(scene, 5, step == 'ts5')
+    assert tracing.counts().get('work.k6_cells', 0) == 0
+    assert tracing.counts().get('launch.face_reduce', 0) == int(
+        step != 'no_grad')
