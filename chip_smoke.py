@@ -192,7 +192,15 @@ Phases (any failure exits non-zero; progress goes to stdout):
      ``Renderer``'s light direction, a light colour (written in place),
      background and angle change is bit-equal to a fresh ``Renderer``'s
      with nothing kept, and differs from the render before the change;
-     calls timed with and without keeping, in turns (no claim).
+     calls timed with and without keeping, in turns (no claim);
+ 25. the K6 texture factors built inside the reduction's tile pass, in the
+     benchmark's two teapot cells (bs 128, 512^2 raster, ts 2 and ts 4)
+     through ``harness.Program``: a training step reduces once with the
+     factors from the maps (``k6.in_reduce`` 1), builds none in plain
+     torch, and repeats its gradients bit for bit; on the step's scene the
+     reduction against ``face_reduce_plain`` on the card (``SUM_TOL``),
+     repeat runs bit-equal; timed with and without the factors beside its
+     bound.
 
 Every profiler window is padded with idle host time at both ends
 (``_profile``); a window that caught none of a kernel's launches is logged
@@ -768,6 +776,19 @@ def _sum_check(name, got, want, axis):
     return float(err.max()), ratio
 
 
+def _reduce_work(pixels, covered, channels, ts, faces):
+    """(bytes, operations) the per-face reduction needs at the least: the
+    face map read at every raster pixel; at each covered pixel the stack's
+    ``channels`` and, with the K6 cells of a ``ts`` cube, the 10 map words
+    the factors are built from (z 3, weights 3, depth 1, rgb gradient 3);
+    the ``[faces, channels + 3 ts^3]`` sums written once.  Operations: an
+    add a channel and, per cell column, two products and an add."""
+    cols = channels + 3 * ts ** 3
+    words = channels + (10 if ts else 0)
+    return (4 * pixels + 4 * words * covered + 4 * faces * cols,
+            covered * (channels + 9 * ts ** 3))
+
+
 def _bwd_scene(settings, faces, textures, rng, dev):
     """The forward maps of one scene (through the forward kernel) and
     random output gradients from ``rng``."""
@@ -824,11 +845,17 @@ def _accumulated(args):
 
 
 def _channel_stack(settings, maps, grads, nf, ts):
+    """The K5 (and K7) stack and the K6 maps (``backward_cuda.K6Maps``,
+    None above ts 4 or without rgb) as ``RasterizeCore`` hands them to the
+    reduction."""
     k5 = settings.return_rgb or settings.return_alpha
-    k6 = ts if settings.return_rgb and ts <= core.MAX_FACTOR_TS else 0
+    k6 = (backward_cuda.K6Maps(settings, ts, maps['z'], maps['weights'],
+                               maps['depth_map'], grads['g_rgb'])
+          if settings.return_rgb and ts <= backward_cuda.MAX_FACTOR_TS
+          else None)
     stack = core.channel_stack(settings, maps, grads['g_rgb'],
                                grads['g_alpha'], grads['g_depth'], k5,
-                               settings.return_depth, k6)
+                               settings.return_depth)
     return stack, k6
 
 
@@ -884,7 +911,9 @@ def _compare_backward(name, settings, maps, grads, nf, ts, worst):
              'run differs')
     err, ratio = _sum_check(f'{name} face_reduce', got, want, 1)
     worst['face_reduce'] = max(worst['face_reduce'], err)
-    msg.append(f'face_reduce [{stack.shape[1]} ch -> {got.shape[1]} cols] '
+    msg.append(f'face_reduce [{stack.shape[1]} ch'
+               + ('' if k6 is None else f' + K6 of ts {k6.ts}')
+               + f' -> {got.shape[1]} cols] '
                f'max abs err {err} ({ratio:.3g} x column max); repeat '
                'runs bitwise equal')
     _log(' '.join(msg))
@@ -2464,6 +2493,155 @@ def _kept_phase(dev, smi, seed):
         torch.cuda.empty_cache()
 
 
+# the benchmark's textured cells (phase 25), ts 2 and ts 4 at bs 128
+K6_CELLS = ('teapot.train_b128', 'teapot.train_ts4_b128')
+# batch elements a slice of the plain reduction takes at bs 128 (its rows
+# at ts 4: 204 columns over 16 x 512^2 pixels, 3.4 GB)
+K6_PLAIN_SLICE = 16
+
+
+def _k6_slice(k6, sl):
+    """``k6``'s maps for batch elements ``sl``."""
+    return k6._replace(z=k6.z[sl], weights=k6.weights[sl],
+                       depth_map=k6.depth_map[sl], grad_rgb=k6.grad_rgb[sl])
+
+
+def _k6_reduce_phase(dev, smi, seed):
+    """Phase 25: the K6 factors built inside ``face_reduce``'s tile pass, in
+    each of ``K6_CELLS`` at its own shape (bs 128, 512^2 raster, ts 2 and
+    ts 4) through the benchmark's ``harness.Program``.  A training step
+    reduces once with the factors built from the maps (``k6.in_reduce`` 1,
+    ``work.k6_cells`` ``bs * nf' * ts^3``), never builds them in plain torch
+    (``texture.texture_cell_factors`` not called), and its vertex and
+    texture gradients repeat bit for bit.  On the step's own scene (one
+    call's lit faces through the forward kernel), with the gradients of
+    ``sum(image)`` and with random ones: the kernel's sums against
+    ``face_reduce_plain`` on the card (in slices of ``K6_PLAIN_SLICE``
+    batch elements) within ``SUM_TOL``, two runs bit-equal.  The reduction
+    timed with and without the factors (CUDA events; each pass alone by the
+    profiler) beside its byte bound (``_reduce_work``), and the plain
+    torch that built the factors before.  Returns {cell: timings}."""
+    from benchmark import harness
+    bench = harness.load_bench(ROOT)
+    rng = np.random.RandomState(seed % 2 ** 32)
+    out = {}
+    for name in K6_CELLS:
+        _, cfg, mix = harness.load_cell(bench, name, ROOT)
+        prog = harness.Program(nt, cfg, mix, seed, dev)
+        ts, bs = cfg['texture_size'], mix['batch']
+        nfp = prog.faces.shape[1] * (2 if cfg['fill_back'] else 1)
+        prog.call(0)                              # warm-up
+        torch.cuda.synchronize()
+        built, plain_factors = [], tex.texture_cell_factors
+
+        def counted(*args):
+            built.append(1)
+            return plain_factors(*args)
+
+        tex.texture_cell_factors = counted
+        try:
+            steps = []
+            for _ in range(2):
+                tracing.reset()
+                steps.append(prog.call(1)[1])
+                torch.cuda.synchronize()
+                counts = tracing.counts()
+        finally:
+            tex.texture_cell_factors = plain_factors
+        _require(counts.get('k6.in_reduce') == 1
+                 and counts.get('launch.face_reduce') == 1
+                 and counts.get('work.k6_cells') == bs * nfp * ts ** 3
+                 and not built,
+                 f'{name}: a training step counts {counts} and built the '
+                 f'factors in plain torch {len(built)} times; want one '
+                 'reduction that builds them')
+        for g in steps[0]:
+            _require(_bits_equal(steps[0][g], steps[1][g]),
+                     f'{name}: the gradient of {g} differs between two '
+                     'steps of one call')
+
+        # the reduction on the step's scene
+        raster = cfg['image_size'] * (2 if cfg['anti_aliasing'] else 1)
+        s = RasterizeSettings(image_size=raster, near=float(cfg['near']),
+                              far=float(cfg['far']),
+                              eps=float(cfg['rasterizer_eps']),
+                              return_alpha=False, return_depth=False)
+        r = prog.renderer
+        r.eye = prog.eye(1)
+        with torch.no_grad():
+            fc, tx = r._lit_faces(prog.vertices, prog.faces, prog.textures)
+            rgb, _, _, maps = core._forward_all(s, fc, tx, torch.zeros(
+                3, device=dev))
+        maps['rgb'] = rgb
+        fim, bins = maps['face_index_map'], maps['bins']
+        g_rand = torch.as_tensor(rng.normal(0, 1, (bs, raster, raster, 3))
+                                 .astype(np.float32), device=dev)
+        errs = {}
+        for kind, g_rgb in (('sum(image)', _sum_image_grads(
+                bs, raster, dev)['g_rgb']), ('random', g_rand)):
+            grads = dict(g_rgb=g_rgb, g_alpha=None, g_depth=None)
+            stack, k6 = _channel_stack(s, maps, grads, nfp, ts)
+            got = backward_cuda.face_reduce(stack, fim, nfp, k6, bins)
+            again = backward_cuda.face_reduce(stack, fim, nfp, k6, bins)
+            want = torch.cat([backward_cuda.face_reduce_plain(
+                stack[b:b + K6_PLAIN_SLICE], fim[b:b + K6_PLAIN_SLICE], nfp,
+                _k6_slice(k6, slice(b, b + K6_PLAIN_SLICE)))
+                for b in range(0, bs, K6_PLAIN_SLICE)])
+            torch.cuda.synchronize()
+            _require(_bits_equal(got, again), f'{name} ({kind}): two '
+                     'reductions differ')
+            errs[kind] = _sum_check(f'{name} face_reduce ({kind})', got,
+                                    want, 1)
+            del got, again, want
+        del g_rand
+
+        def with_k6():
+            return backward_cuda.face_reduce(stack, fim, nfp, k6, bins)
+
+        def without_k6():
+            return backward_cuda.face_reduce(stack, fim, nfp, None, bins)
+
+        ms = dict(with_k6=_time_ms(with_k6, reps=20, warmup=2),
+                  without_k6=_time_ms(without_k6, reps=20, warmup=2),
+                  factors_plain=_time_ms(lambda: k6.factors(fim), reps=5))
+        ms['with_k6_again'] = _time_ms(with_k6, reps=20)
+        ms['without_k6_again'] = _time_ms(without_k6, reps=20)
+        for key, fn in (('with_k6', with_k6), ('without_k6', without_k6)):
+            ms[key + '_tile_alone'] = _kernel_device_ms(fn, 5,
+                                                        'face_reduce_tile')
+            ms[key + '_face_alone'] = _kernel_device_ms(fn, 5,
+                                                        'face_reduce_face')
+        cov = int((fim >= 0).sum())
+        for key, t in (('with_k6', ts), ('without_k6', 0)):
+            ms[key + '_bound'], _ = _bound(*_reduce_work(
+                bs * raster * raster, cov, stack.shape[1], t, bs * nfp))
+        ms['covered'] = cov
+        ms['max_abs_err'] = {k: e for k, (e, _) in errs.items()}
+        out[name] = ms
+        _log(f'K6 in the reduction ({name}, bs {bs}, {raster}^2, ts {ts}) '
+             f'on {smi}: a step reduces once with the factors from the maps '
+             f"(k6.in_reduce {counts.get('k6.in_reduce')}, work.k6_cells "
+             f"{counts.get('work.k6_cells')}), builds none in plain torch, "
+             f'and repeats its gradients bit for bit; against '
+             f'face_reduce_plain '
+             + ', '.join(f'{k} max abs err {e:.3g} ({q:.3g} x column max)'
+                         for k, (e, q) in errs.items())
+             + f', repeat runs bit-equal; {cov} covered pixels; reduction '
+             f'with the factors {ms["with_k6"]:.4f} / '
+             f'{ms["with_k6_again"]:.4f} ms (tile pass alone '
+             f'{_fmt_ms(ms["with_k6_tile_alone"])}, face pass '
+             f'{_fmt_ms(ms["with_k6_face_alone"])}), bound '
+             f'{ms["with_k6_bound"]:.4f} ms; without '
+             f'{ms["without_k6"]:.4f} / {ms["without_k6_again"]:.4f} ms '
+             f'(tile pass {_fmt_ms(ms["without_k6_tile_alone"])}, face pass '
+             f'{_fmt_ms(ms["without_k6_face_alone"])}), bound '
+             f'{ms["without_k6_bound"]:.4f} ms; the factors in plain torch '
+             f'{ms["factors_plain"]:.3f} ms')
+        del prog, steps, maps, stack, k6, fim, bins, fc, tx, rgb
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -2760,7 +2938,8 @@ def main():
         alone[name] = _kernel_device_ms(kern, 5, kname)
         times[name] = (k1, p1)
         _log(f'time at bs {BATCH}, {RASTER}^2, rgb, ts 2 ({stack.shape[1]} '
-             f'stack channels) on {smi}: {name} {k1:.3f} / {k2:.3f} ms, '
+             f'stack channels and the K6 maps) on {smi}: {name} {k1:.3f} / '
+             f'{k2:.3f} ms, '
              f'plain {p1:.3f} / {p2:.3f} ms (kernel, plain, kernel, plain); '
              f'kernel alone (profiler) {_fmt_ms(alone[name])}')
 
@@ -2820,9 +2999,8 @@ def main():
         + 2 * 2 * 4 * walk['active'], SWEEP_POS_OPS * walk['positions'])
     reduced = reduce()
     cols = reduced.shape[1]
-    bounds['face_reduce'] = _bound(
-        4 * pixels32 + 4 * channels * cov + 4 * BATCH * nf2 * cols,
-        channels * cov)
+    bounds['face_reduce'] = _bound(*_reduce_work(pixels32, cov, channels,
+                                                 k6.ts, BATCH * nf2))
     _log(f'backward bounds at bs {BATCH}, {RASTER}^2, rgb: {cov} covered '
          f'pixels; out-sweep: {walk["active"]} active crossings sweeping '
          f'{walk["positions"]} positions x {SWEEP_POS_OPS} operations on '
@@ -2835,19 +3013,16 @@ def main():
          f'{_bound(0, SWEEP_POS_OPS * walk["positions"])[0]:.4f} ms')
 
     # the library side of face_reduce, from the kernel's own inputs (the
-    # channel-leading stack and the face map): the K6 factors expanded to
-    # their cell columns, the covered pixels' rows gathered pixel-major,
-    # then one index_add_ into per-face rows.  No single PyTorch call
-    # computes the function; index_add_ is its library core, timed alone
-    # on rows gathered beforehand as well
-    naux = k6 * k6 + k6 + 3
-
+    # channel-leading stack, the K6 maps and the face map): the K6 factors
+    # built and expanded to their cell columns, the covered pixels' rows
+    # gathered pixel-major, then one index_add_ into per-face rows.  No
+    # single PyTorch call computes the function; index_add_ is its library
+    # core, timed alone on rows gathered beforehand as well
     def library_reduce():
         covered = (fim >= 0).reshape(-1)
         seg = bwd.face_segments(fim, nf2).reshape(-1)[covered]
-        full = torch.cat([stack[:, :channels - naux],
-                          tex.texture_channels_cells(
-                              stack[:, channels - naux:], k6)], dim=1)
+        full = torch.cat([stack, tex.texture_channels_cells(
+            k6.factors(fim), k6.ts)], dim=1)
         rows = full.permute(0, 2, 3, 1).reshape(-1, cols)[covered]
         sums = torch.zeros((BATCH * nf2, cols), device=dev)
         return sums.index_add_(0, seg, rows), seg, rows
@@ -2857,12 +3032,13 @@ def main():
     library['face_reduce'] = _time_ms(library_reduce, reps=20, warmup=2)
     add_ms = _time_ms(lambda: sums.index_add_(0, seg, rows), reps=20,
                       warmup=2)
-    _log(f'library side of face_reduce from its inputs (K6 expansion, '
+    _log(f'library side of face_reduce from its inputs (K6 factors and '
+         f'expansion, '
          f'gather of the {cov} covered pixel rows x {cols} columns, '
          f'index_add_) {library["face_reduce"]:.3f} ms, of which '
          f'index_add_ alone {add_ms:.3f} ms, on {smi}; max |diff| vs the '
          f'kernel {err:.3g}')
-    del stack, maps, grads, sweep, sweep_sum, k5, rows, seg, sums
+    del stack, maps, grads, sweep, sweep_sum, k5, rows, seg, sums, k6
     del reduced
 
     # ---- 7. the main path: training steps ----
@@ -3475,6 +3651,11 @@ def main():
     # ---- 24. host values kept on the card ----
     torch.cuda.empty_cache()
     _kept_phase(dev, smi, args.seed)
+
+    # ---- 25. the K6 factors inside the reduction ----
+    torch.cuda.empty_cache()
+    extra['face_reduce']['teapot_cells'] = _k6_reduce_phase(dev, smi,
+                                                            args.seed)
 
     sources = {
         'forward_shaded': ('neural_renderer_torch/csrc/forward_shaded.cu',

@@ -64,7 +64,9 @@ LIBRARIES = {
         'nr_outsweep': (I32, _SWEEP + (I32, I32, I32, PTR)),
         'nr_outsweep_smem_limit': (I32, ())},
     'face_reduce': {
-        'nr_face_reduce': (I32, (PTR,) * 6 + (I32,) * 5 + (PTR,) * 3),
+        'nr_face_reduce': (I32, (PTR,) * 6 + (I32,) * 5
+                           + (ctypes.POINTER(PTR), ctypes.POINTER(I64), F32)
+                           + (PTR,) * 3),
         'nr_face_grad': (I32, (PTR, I64, I64, I32, I32, PTR, PTR)),
         'nr_face_reduce_tile': (I32, ())},
     'composite_pool': {

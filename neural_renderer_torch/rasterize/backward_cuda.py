@@ -10,8 +10,9 @@ the card:
     added to the in-sweep's channels;
   * ``face_reduce`` (``csrc/face_reduce.cu``, replaces ``backward_pallas.
     _csr_kernel`` and its segment_sum): per-face sums of the fused
-    per-pixel channel stack, K6 factors expanded to texture cells, per
-    (tile, face) pair of the forward's tile lists and then per face;
+    per-pixel channel stack (K5, K7) and of the K6 texture cells, whose
+    factors its tile pass builds from the forward's maps, per (tile, face)
+    pair of the forward's tile lists and then per face;
   * ``face_grad`` (same source, replaces the JAX package's XLA scatter of
     the K5 sums, ``neural_renderer_tpu/rasterize/backward.py:540-565``):
     ``grad_faces`` from the per-face sums, the K5 sums added in their
@@ -34,6 +35,7 @@ is the coverage of ``face_index_map``.  Which terms enter follows
 """
 
 import functools
+import typing
 
 import torch
 
@@ -249,29 +251,44 @@ def _outsweep(settings, xy, face_index_map, rgb, grad_rgb, grad_alpha, out,
                          int(plan['staged']), plan['cap'])
 
 
-def _expanded_width(C, ts):
-    """Output columns of a C-channel stack whose last ts^2 + ts + 3
-    channels are K6 factors (none when ts is 0)."""
-    if not ts:
-        return C
-    naux = ts * ts + ts + 3
-    if C < naux:
-        raise ValueError(f'a stack of {C} channels cannot carry the {naux} '
-                         f'K6 factor channels of ts={ts}')
-    return C - naux + ts ** 3 * 3
+# the largest cube whose K6 factors the reduction builds (the kernel's
+# kMaxTs, 23 factors at ts 4); larger cubes take the 8-corner scatter, as in
+# the JAX package
+MAX_FACTOR_TS = 4
 
 
-def face_reduce_plain(stack, face_index_map, nf, ts=0):
-    """The plain PyTorch version of ``face_reduce``: expand the K6 factors
-    (``texture.texture_channels_cells``), then ``index_add_`` the pixel rows
-    over ``bs * nf + 1`` segments and drop the overflow row."""
-    bs, C = stack.shape[:2]
-    c_out = _expanded_width(C, ts)
-    if ts:
-        naux = ts * ts + ts + 3
-        stack = torch.cat([stack[:, :C - naux],
-                           tex.texture_channels_cells(stack[:, C - naux:],
-                                                      ts)], dim=1)
+class K6Maps(typing.NamedTuple):
+    """What the K6 texture factors of a ``ts`` cube are built from at each
+    covered pixel (``texture.texture_cell_factors``): the forward's maps
+    and the rgb gradient, as the backward holds them."""
+
+    settings: object          # the rasterizer's settings: eps sets the clamp
+    ts: int
+    z: torch.Tensor           # [bs, 3, is, is], the winner's vertex depths
+    weights: torch.Tensor     # [bs, 3, is, is]
+    depth_map: torch.Tensor   # [bs, is, is]
+    grad_rgb: torch.Tensor    # [bs, is, is, 3], any strides
+
+    def factors(self, face_index_map):
+        """The factor channels ``[bs, ts^2 + ts + 3, is, is]`` in plain
+        torch, zero at uncovered pixels."""
+        return tex.texture_cell_factors(
+            self.settings, face_index_map, self.z.permute(0, 2, 3, 1),
+            self.weights.permute(0, 2, 3, 1), self.depth_map,
+            self.grad_rgb.permute(0, 3, 1, 2), self.ts)
+
+
+def face_reduce_plain(stack, face_index_map, nf, k6=None):
+    """The plain PyTorch version of ``face_reduce``: the K6 factors built
+    from ``k6``'s maps and expanded to texture cells
+    (``texture.texture_channels_cells``) after the stack's channels, then
+    ``index_add_`` of the pixel rows over ``bs * nf + 1`` segments, the
+    overflow row dropped."""
+    bs = stack.shape[0]
+    if k6 is not None:
+        stack = torch.cat([stack, tex.texture_channels_cells(
+            k6.factors(face_index_map), k6.ts)], dim=1)
+    c_out = stack.shape[1]
     rows = stack.permute(0, 2, 3, 1).reshape(-1, c_out)
     seg = bwd.face_segments(face_index_map, nf).reshape(-1)
     out = torch.zeros((bs * nf + 1, c_out), dtype=torch.float32,
@@ -301,21 +318,55 @@ def _check_bins(bins, bs, nf, is_, tile, device):
                              f'{t.device}')
 
 
-def face_reduce(stack, face_index_map, nf, ts=0, bins=None):
-    """Per-face sums ``[bs * nf, C_out]`` of the channel stack
-    ``[bs, C, is, is]`` over the pixels each face won.  With ``ts`` > 0 the
-    last ``ts^2 + ts + 3`` channels are K6 factors
+def _check_k6(k6, bs, is_, device):
+    """``k6``'s cube size and maps (any strides) as the kernel takes them."""
+    if not 1 <= k6.ts <= MAX_FACTOR_TS:
+        raise ValueError(f'the reduction builds the K6 factors of 1 <= ts <= '
+                         f'{MAX_FACTOR_TS}; got ts={k6.ts}')
+    want = {'z': (bs, 3, is_, is_), 'weights': (bs, 3, is_, is_),
+            'depth_map': (bs, is_, is_), 'grad_rgb': (bs, is_, is_, 3)}
+    for name, shape in want.items():
+        t = getattr(k6, name)
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape
+                or t.device != device):
+            raise ValueError(f'k6.{name} must be float32 {shape} on '
+                             f'{device}; got {t.dtype} {tuple(t.shape)} on '
+                             f'{t.device}')
+
+
+def _k6_args(k6):
+    """The kernel's K6 arguments: the maps' device addresses, their 4
+    element strides each (depth as ``[bs, 1, is, is]``, the rgb gradient
+    as its ``[bs, 3, is, is]`` permutation), and the clamp's upper limit
+    ``ts - 1 - eps`` as torch.clamp rounds it, to float; nulls where there
+    are no factors."""
+    if k6 is None:
+        return None, None, 0.0
+    maps = (k6.z, k6.weights, k6.depth_map[:, None],
+            k6.grad_rgb.permute(0, 3, 1, 2))
+    return ((_build.PTR * 4)(*(t.data_ptr() for t in maps)),
+            (_build.I64 * 16)(*(n for t in maps for n in t.stride())),
+            k6.ts - 1 - k6.settings.eps)
+
+
+def face_reduce(stack, face_index_map, nf, k6=None, bins=None):
+    """Per-face sums ``[bs * nf, C_out]`` over the pixels each face won of
+    the channel stack ``[bs, C, is, is]`` (the K5 and K7 channels; ``C``
+    may be 0) and, with ``k6`` (``K6Maps`` of a ``ts`` cube), of the K6
+    texture cells: the factors built from ``k6``'s maps
     (``texture.texture_cell_factors``), expanded to ``ts^3 * 3`` cell
-    columns in cube order, so ``C_out = C - (ts^2 + ts + 3) + ts^3 * 3``.
+    columns in cube order after the stack's, so ``C_out = C + 3 ts^3``.
     Faces that win no pixel get exact zeros; uncovered pixels are skipped.
 
     ``bins``: the forward's tile lists (``forward_shaded(...)['bins']``:
     ``tile``, ``start``, ``ids``, ``order``, ``first``), which hold every
     covered pixel's winner.  Required on the card, where the kernel sums
     each (tile, face) pair and then each face's pairs, deterministically
-    (no float atomics, no sort of the raster); ignored on the CPU.  On the
-    card a reduction with ``ts`` > 0 counts the texture cells its factor
-    expansion writes, ``bs * nf * ts^3``, as ``work.k6_cells``."""
+    (no float atomics, no sort of the raster), and builds the factors of
+    each covered pixel in its tile pass from the maps, with no factor
+    planes; ignored on the CPU.  On the card a reduction with ``k6`` counts
+    one ``k6.in_reduce`` and the texture cells it writes, ``bs * nf *
+    ts^3``, as ``work.k6_cells``."""
     bs, C, is_ = stack.shape[0], stack.shape[1], stack.shape[2]
     if (stack.dtype != torch.float32 or stack.ndim != 4
             or stack.shape[3] != is_
@@ -326,15 +377,18 @@ def face_reduce(stack, face_index_map, nf, ts=0, bins=None):
                          f'{stack.dtype} {tuple(stack.shape)} and '
                          f'{face_index_map.dtype} '
                          f'{tuple(face_index_map.shape)}')
-    c_out = _expanded_width(C, ts)
+    if k6 is not None:
+        _check_k6(k6, bs, is_, stack.device)
     if not on_card(stack):
-        return face_reduce_plain(stack, face_index_map, nf, ts)
+        return face_reduce_plain(stack, face_index_map, nf, k6)
     if bs * is_ * is_ >= 2 ** 31 or bs * nf >= 2 ** 31:
         raise ValueError('face_reduce indexes pixels and faces with int32')
     lib = _build.library('face_reduce')
     _check_bins(bins, bs, nf, is_, lib.nr_face_reduce_tile(), stack.device)
+    ts = 0 if k6 is None else k6.ts
     stack = stack.contiguous()
     fim = face_index_map.contiguous()
+    c_out = C + 3 * ts ** 3
     partial = torch.empty((bins['ids'].shape[0], c_out), dtype=torch.float32,
                           device=stack.device)
     out = torch.empty((bs * nf, c_out), dtype=torch.float32,
@@ -343,8 +397,10 @@ def face_reduce(stack, face_index_map, nf, ts=0, bins=None):
         lib, 'face_reduce', stack.get_device(), stack.data_ptr(),
         fim.data_ptr(),
         *(bins[k].data_ptr() for k in ('start', 'ids', 'order', 'first')),
-        bs, nf, is_, C, ts, partial.data_ptr(), out.data_ptr())
+        bs, nf, is_, C, ts, *_k6_args(k6), partial.data_ptr(),
+        out.data_ptr())
     if ts:
+        tracing.COUNTS['k6.in_reduce'] += 1
         tracing.COUNTS['work.k6_cells'] += bs * nf * ts ** 3
     return out
 

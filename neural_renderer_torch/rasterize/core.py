@@ -9,14 +9,17 @@ exact texture gradient (K6), the analytic depth gradient (K7) and the exact
 background gradient.
 
 The backward builds one channel-leading per-pixel stack ``[bs, C, is, is]``:
-the 12 K5 channels (in-sweep, then the out-sweep added in place), the 9 K7
-channels when depth is drawn, and the ``ts^2 + ts + 3`` K6 factor channels
-for ``ts <= 4``.  One per-face reduction (``backward_cuda.face_reduce``,
-which on the card sums by the forward's tile lists) sums it, expanding the
-factors to texture cells, and one pass (``backward_cuda.face_grad``, a
-kernel on the card) maps the K5 sums to vertex slots and adds the K7 sums
-into ``grad_faces``.  Only what ``ctx.needs_input_grad`` asks for is
-computed, and a forward that needs no gradient saves nothing.
+the 12 K5 channels (in-sweep, then the out-sweep added in place) and the 9
+K7 channels when depth is drawn.  One per-face reduction
+(``backward_cuda.face_reduce``, which on the card sums by the forward's
+tile lists) sums it and, for ``ts <= 4``, the K6 texture cells, whose
+factors it builds from the forward's maps and the rgb gradient
+(``backward_cuda.K6Maps``; on the card inside its tile pass, for covered
+pixels only, so no factor planes are written).  One pass
+(``backward_cuda.face_grad``, a kernel on the card) maps the K5 sums to
+vertex slots and adds the K7 sums into ``grad_faces``.  Only what
+``ctx.needs_input_grad`` asks for is computed, and a forward that needs no
+gradient saves nothing.
 
 Outputs are raster-space maps: row 0 = top in +y-down pixel space; the
 public wrappers in ``api.py`` apply the reference's NCHW transpose / vertical
@@ -32,10 +35,6 @@ from neural_renderer_torch.rasterize import backward as bwd
 from neural_renderer_torch.rasterize import backward_cuda, composite_pool
 from neural_renderer_torch.rasterize import forward_cuda, geometry
 from neural_renderer_torch.rasterize import texture as tex
-
-# the K6 factors ride the reduction up to this cube size (23 channels at
-# ts 4); larger cubes take the 8-corner scatter, as in the JAX package
-MAX_FACTOR_TS = 4
 
 
 def _merge_face_group(settings, out, nf_local):
@@ -162,10 +161,11 @@ def _k7_channels(settings, covered, xy, z, weights, depth_map, g_depth):
                               weights.permute(0, 2, 3, 1), depth_map, g_depth)
 
 
-def channel_stack(settings, maps, g_rgb, g_alpha, g_depth, k5, k7, k6_ts):
+def channel_stack(settings, maps, g_rgb, g_alpha, g_depth, k5, k7):
     """The fused per-pixel channel stack ``[bs, C, is, is]``: the 12 K5
-    channels (when ``k5``), the 9 K7 channels (when ``k7``) and the
-    ``ts^2 + ts + 3`` K6 factors (when ``k6_ts`` > 0), in that order.
+    channels (when ``k5``) and the 9 K7 channels (when ``k7``), in that
+    order; ``C`` is 0 with neither.  The K6 factors are not in it: the
+    reduction builds them (``backward_cuda.K6Maps``).
 
     maps: the forward's ``face_index_map``, ``weights``, ``depth_map``,
     ``xy``, ``z`` and the composited ``rgb`` ([bs, is, is, 3], read by K5
@@ -177,8 +177,7 @@ def channel_stack(settings, maps, g_rgb, g_alpha, g_depth, k5, k7, k6_ts):
     cover = maps.get('global_index_map')
     cover = fim if cover is None else cover
     bs, is_ = fim.shape[0], settings.image_size
-    naux = k6_ts * k6_ts + k6_ts + 3 if k6_ts else 0
-    C = (12 if k5 else 0) + (9 if k7 else 0) + naux
+    C = (12 if k5 else 0) + (9 if k7 else 0)
     stack = torch.empty((bs, C, is_, is_), dtype=torch.float32,
                         device=fim.device)
     if k5:
@@ -191,12 +190,6 @@ def channel_stack(settings, maps, g_rgb, g_alpha, g_depth, k5, k7, k6_ts):
             stack[:, off:off + 9] = _k7_channels(
                 settings, fim >= 0, maps['xy'], maps['z'], maps['weights'],
                 maps['depth_map'], g_depth)
-    if k6_ts:
-        with tracing.span('backward.k6'):
-            stack[:, C - naux:] = tex.texture_cell_factors(
-                settings, fim, maps['z'].permute(0, 2, 3, 1),
-                maps['weights'].permute(0, 2, 3, 1), maps['depth_map'],
-                g_rgb.permute(0, 3, 1, 2), k6_ts)
     return stack
 
 
@@ -251,14 +244,15 @@ class RasterizeCore(torch.autograd.Function):
 
         k5 = need_faces and (s.return_rgb or s.return_alpha)
         k7 = need_faces and s.return_depth
-        k6_ts = ts if (need_tex and s.return_rgb
-                       and ts <= MAX_FACTOR_TS) else 0
+        k6 = (backward_cuda.K6Maps(s, ts, maps['z'], maps['weights'],
+                                   maps['depth_map'], g_rgb)
+              if need_tex and s.return_rgb
+              and ts <= backward_cuda.MAX_FACTOR_TS else None)
         sums = None
-        if k5 or k7 or k6_ts:
-            stack = channel_stack(s, maps, g_rgb, g_alpha, g_depth, k5, k7,
-                                  k6_ts)
+        if k5 or k7 or k6 is not None:
+            stack = channel_stack(s, maps, g_rgb, g_alpha, g_depth, k5, k7)
             with tracing.span('backward.reduce'):
-                sums = backward_cuda.face_reduce(stack, fim, nf, k6_ts, bins)
+                sums = backward_cuda.face_reduce(stack, fim, nf, k6, bins)
 
         grad_faces = grad_textures = grad_bg = None
         if need_faces:
@@ -270,7 +264,7 @@ class RasterizeCore(torch.autograd.Function):
                 grad_faces = backward_cuda.face_grad(
                     sums, face_shape, k5, (12 if k5 else 0) if k7 else None)
         if need_tex:
-            if k6_ts:
+            if k6 is not None:
                 grad_textures = sums[:, -ts ** 3 * 3:].reshape(tex_shape)
             elif s.return_rgb:
                 with tracing.span('backward.k6'):

@@ -7,12 +7,14 @@ the plain PyTorch version; the CUDA forward kernel (``forward_cuda``) fuses
 the same arithmetic for ``ts <= 4``.
 
 The gradient (reference ``rasterize.py:750-792``, an atomicAdd scatter) is
-recomputed from the saved maps.  For ``ts <= 4`` the backward carries
-per-pixel *factor* channels (``texture_cell_factors``) and the per-face
-reduction kernel expands them to the ``ts^3 * 3`` cell columns
-(``texture_channels_cells`` is the plain expansion); larger cubes take the
-8-corner scatter ``grad_textures``, as the JAX package does, summed in a
-fixed order on the card (``ops/segments.py``).
+recomputed from the saved maps.  For ``ts <= 4`` the per-face reduction
+(``backward_cuda.face_reduce``) sums per-pixel *factors*
+(``texture_cell_factors``) expanded to the ``ts^3 * 3`` cell columns
+(``texture_channels_cells`` is the plain expansion); on the card its
+kernel builds the factors itself from the maps, covered pixels only, and
+these functions are its plain version.  Larger cubes take the 8-corner
+scatter ``grad_textures``, as the JAX package does, summed in a fixed
+order on the card (``ops/segments.py``).
 
 Deliberate fix vs the reference: K4 reads the winning face's vertex depths
 from batch 0 for every batch element (``rasterize.py:389`` indexes

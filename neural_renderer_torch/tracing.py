@@ -39,7 +39,11 @@ spans.  The spans are the layer boundaries of a call:
   * ``work.k6_cells``: the texture cells (``bs * nf * ts^3``) whose sums
     the per-face reduction (``backward_cuda.face_reduce``) expands from the
     K6 factors, wherever textures of ``ts`` > 0 get a gradient through it;
-    none in a silhouette step or under no_grad.  A shape the host knows.
+    none in a silhouette step or under no_grad.  A shape the host knows;
+  * ``k6.in_reduce``: reductions on the card whose tile pass built the K6
+    factors from the forward's maps (``backward_cuda.face_reduce`` with
+    ``k6``): 1 a training step whose textures of ``ts <= 4`` get a
+    gradient, 0 in a silhouette step, under no_grad or above ts 4.
 
 The plain CPU paths count nothing.
 """

@@ -15,11 +15,17 @@ azimuths) with random value and gradient maps from a numpy seed:
   * ``face_reduce_plain`` against ``jax.ops.segment_sum``: rtol 1e-5, atol
     1e-6 x max (sum order), and the tile-pair bookkeeping of the card's
     reduction against ``face_reduce_plain`` at the same tolerance;
+    ``face_reduce`` building the K6 factors from the maps against the
+    route in which the stack carried them, and its card route (a fake
+    kernel reading what the wrapper hands over) against the plain
+    version: bit for bit;
   * the exact background gradient against ``jax.grad``: rtol 1e-5;
   * the four hard-coded gradient cases (rtol 1e-2, atol 1e-5, the
     reference's own) and the float64 K5 pipeline of test_grad_parity64
     (rtol 1e-3, atol 1e-4 x max), through ``torch.autograd``.
 """
+
+import ctypes
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +35,7 @@ import torch
 
 import neural_renderer_torch as nt
 import neural_renderer_tpu as nr
+import torch_fakes
 import utils
 from neural_renderer_torch import tracing
 from neural_renderer_torch.rasterize import backward as tbwd
@@ -218,33 +225,45 @@ def test_k7_channels_match_jax(scene):
     _close(got, want, 1e-6, 1e-7)
 
 
-def _reduce_stack(sc, ts):
-    """A random 12-channel stack, with the scene's K6 factors appended for
-    ts > 0: (stack, its rows with the factors expanded to cells)."""
+def _k6_maps(sc, ts, grad_rgb=None):
+    """The scene's maps as the backward hands them to the reduction: z and
+    weights channel-leading views of the NHWC maps, the rgb gradient as
+    NHWC (``grad_rgb`` in its place when given)."""
+    t = torch.as_tensor
+    return backward_cuda.K6Maps(
+        TSet(image_size=IS, eps=EPS), ts, t(sc['z']).permute(0, 3, 1, 2),
+        t(sc['weights']).permute(0, 3, 1, 2), t(sc['depth']),
+        t(sc['grgb']) if grad_rgb is None else grad_rgb)
+
+
+def _reduce_stack(sc, ts, k5=True):
+    """A random 12-channel stack (no channel without ``k5``) and, for
+    ts > 0, the scene's K6 maps: (stack, k6 or None, the stack's rows with
+    the factors expanded to cells after them)."""
     rng = np.random.RandomState(ts)
-    base = rng.normal(0, 1, (2, 12, IS, IS)).astype(np.float32)
+    base = rng.normal(0, 1, (2, 12 if k5 else 0, IS, IS)).astype(np.float32)
     if not ts:
-        return base, base
-    fac = ttex.texture_cell_factors(
-        TSet(image_size=IS, eps=EPS), torch.as_tensor(sc['fim']),
-        torch.as_tensor(sc['z']), torch.as_tensor(sc['weights']),
-        torch.as_tensor(sc['depth']),
-        torch.as_tensor(sc['grgb']).permute(0, 3, 1, 2), ts).numpy()
-    return (np.concatenate([base, fac], axis=1),
-            np.concatenate([base, ttex.texture_channels_cells(
-                torch.as_tensor(fac), ts).numpy()], axis=1))
+        return base, None, base
+    k6 = _k6_maps(sc, ts)
+    fac = k6.factors(torch.as_tensor(sc['fim']))
+    return (base, k6, np.concatenate(
+        [base, ttex.texture_channels_cells(fac, ts).numpy()], axis=1))
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.int32)
 
 
 @pytest.mark.parametrize('ts', [0, 2, 4])
 def test_face_reduce_plain_matches_segment_sum(scene, ts):
-    """Per-face sums (K6 factors expanded for ts > 0) against
+    """Per-face sums (the K6 cells built from the maps for ts > 0) against
     jax.ops.segment_sum of the expanded rows; faces that win no pixel get
     exact zeros."""
     sc = scene
     nf = sc['faces'].shape[1]
-    stack, rows = _reduce_stack(sc, ts)
+    stack, k6, rows = _reduce_stack(sc, ts)
     got = backward_cuda.face_reduce_plain(
-        torch.as_tensor(stack), torch.as_tensor(sc['fim']), nf, ts).numpy()
+        torch.as_tensor(stack), torch.as_tensor(sc['fim']), nf, k6).numpy()
     seg = np.asarray(jbwd.face_segments(None, jnp.zeros((2, nf)),
                                         jnp.asarray(sc['fim'])))
     want = np.asarray(jax.ops.segment_sum(
@@ -255,6 +274,134 @@ def test_face_reduce_plain_matches_segment_sum(scene, ts):
     won = np.zeros(2 * nf, bool)
     won[seg[seg < 2 * nf]] = True
     assert (~won).sum() > 0 and np.all(got[~won] == 0)
+
+
+def _factor_stack_route(stack, fim, nf, k6):
+    """The reduction as it ran when the stack carried the K6 factors: the
+    factor channels written after the K5 channels, the stack's last
+    ``ts^2 + ts + 3`` channels expanded to cells, ``index_add_``."""
+    ts = k6.ts
+    naux = ts * ts + ts + 3
+    full = torch.cat([stack, k6.factors(fim)], dim=1)
+    C = full.shape[1]
+    full = torch.cat([full[:, :C - naux],
+                      ttex.texture_channels_cells(full[:, C - naux:], ts)],
+                     dim=1)
+    c_out = full.shape[1]
+    rows = full.permute(0, 2, 3, 1).reshape(-1, c_out)
+    seg = tbwd.face_segments(fim, nf).reshape(-1)
+    out = torch.zeros((stack.shape[0] * nf + 1, c_out))
+    return out.index_add_(0, seg, rows)[:-1]
+
+
+@pytest.mark.parametrize('k5', [True, False], ids=['k5', 'k6_only'])
+@pytest.mark.parametrize('ts', [1, 2, 3, 4])
+def test_face_reduce_builds_the_factors_as_the_stack_carried_them(scene, ts,
+                                                                  k5):
+    """``face_reduce`` fed the K5 stack (or none) and the maps gives the
+    bits of the route in which the stack carried the factor channels."""
+    sc = scene
+    nf = sc['faces'].shape[1]
+    stack, k6, _ = _reduce_stack(sc, ts, k5)
+    stack, fim = torch.as_tensor(stack), torch.as_tensor(sc['fim'])
+    got = backward_cuda.face_reduce(stack, fim, nf, k6)
+    want = _factor_stack_route(stack, fim, nf, k6)
+    assert got.shape == (2 * nf, (12 if k5 else 0) + 3 * ts ** 3)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert float(want[:, -3 * ts ** 3:].abs().max()) > 0
+
+
+class _FakeFactorReduce:
+    """Stands in for ``csrc/face_reduce.cu``'s ``nr_face_reduce`` on CPU
+    tensors: reads the stack and the four maps behind the pointers and
+    strides it is handed, builds each pixel's K6 factors in the kernel's
+    order of float32 operations, and sums the rows per face in pixel
+    order, as ``face_reduce_plain``'s ``index_add_`` does."""
+
+    launches = 0
+
+    @staticmethod
+    def nr_face_reduce_tile():
+        return 16
+
+    @staticmethod
+    def _strided(address, strides, shape):
+        span = 1 + sum((n - 1) * s for n, s in zip(shape, strides))
+        buf = np.ctypeslib.as_array((ctypes.c_float * span).from_address(
+            address))
+        return np.lib.stride_tricks.as_strided(
+            buf, shape, [4 * s for s in strides])
+
+    @classmethod
+    def nr_face_reduce(cls, stack, fim, start, ids, order, first, bs, nf,
+                       is_, C, ts, maps, strides, hi, partial, out, stream):
+        cls.launches += 1
+        f32 = np.float32
+        shape4 = (bs, 3, is_, is_)
+        z, w, d, g = (cls._strided(maps[i], strides[4 * i:4 * i + 4], s)
+                      for i, s in enumerate((shape4, shape4,
+                                             (bs, 1, is_, is_), shape4)))
+        face = np.ctypeslib.as_array((ctypes.c_int * (bs * is_ * is_))
+                                     .from_address(fim)).reshape(bs, is_,
+                                                                 is_)
+        # uncovered pixels divide by z = 0; only covered rows are summed
+        with np.errstate(all='ignore'):
+            tif = (w * f32(ts - 1)) * (d / z)
+            tif = np.minimum(np.maximum(tif, f32(0)), f32(hi))
+            lo = tif.astype(np.int32)
+            frac = tif - lo.astype(f32)
+            hat = [[np.where(lo[:, k] == j, f32(1) - frac[:, k], f32(0))
+                    + np.where(lo[:, k] + 1 == j, frac[:, k], f32(0))
+                    for j in range(ts)] for k in range(3)]
+            p01 = [x0 * x1 for x0 in hat[0] for x1 in hat[1]]
+            cells = [(p * a) * g[:, c] for p in p01 for a in hat[2]
+                     for c in range(3)]
+        cols = [] if C == 0 else list(np.ctypeslib.as_array(
+            (ctypes.c_float * (bs * C * is_ * is_)).from_address(stack))
+            .reshape(bs, C, is_, is_).transpose(1, 0, 2, 3))
+        rows = np.stack(cols + cells, -1).reshape(-1, C + 3 * ts ** 3)
+        covered = face.reshape(-1) >= 0
+        seg = (np.arange(bs)[:, None, None] * nf + face).reshape(-1)
+        sums = np.zeros((bs * nf, rows.shape[1]), f32)
+        np.add.at(sums, seg[covered], rows[covered])
+        np.ctypeslib.as_array((ctypes.c_float * sums.size).from_address(
+            out))[:] = sums.reshape(-1)
+        return 0
+
+
+@pytest.mark.parametrize('k5', [True, False], ids=['k5', 'k6_only'])
+@pytest.mark.parametrize('ts', [2, 4])
+def test_face_reduce_card_route_hands_the_kernel_the_maps(scene,
+                                                          monkeypatch, ts,
+                                                          k5):
+    """The card route hands the kernel the maps as they lie (z and
+    weights channel-leading views of NHWC maps, the rgb gradient an NHWC
+    view of NCHW memory), their strides, ts and the clamp's limit; the
+    kernel's order of operations, mirrored by the fake, gives the plain
+    version's bits.  One launch, counted with ``k6.in_reduce``."""
+    sc = scene
+    nf = sc['faces'].shape[1]
+    stack, _, _ = _reduce_stack(sc, ts, k5)
+    nchw = torch.as_tensor(sc['grgb']).permute(0, 3, 1, 2).contiguous()
+    k6 = _k6_maps(sc, ts, nchw.permute(0, 2, 3, 1))
+    stack, fim = torch.as_tensor(stack), torch.as_tensor(sc['fim'])
+    bins = dict(zip(('start', 'ids', 'order', 'first'),
+                    forward_cuda.bin_faces(TSet(image_size=IS, eps=EPS),
+                                           torch.as_tensor(sc['faces']),
+                                           16)), tile=16)
+    want = backward_cuda.face_reduce_plain(stack, fim, nf, k6)
+    _FakeFactorReduce.launches = 0
+    torch_fakes.fake_card(monkeypatch, backward_cuda, _FakeFactorReduce)
+    tracing.reset()
+    try:
+        got = backward_cuda.face_reduce(stack, fim, nf, k6, bins)
+        counts = tracing.counts()
+    finally:
+        tracing.reset()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert _FakeFactorReduce.launches == 1
+    assert counts == {'launch.face_reduce': 1, 'k6.in_reduce': 1,
+                      'work.k6_cells': 2 * nf * ts ** 3}
 
 
 @pytest.mark.parametrize('ts', [0, 2])
@@ -291,7 +438,7 @@ def test_tile_pairs_sum_to_face_reduce(scene, ts):
     assert bool((ids.long()[start.long()[t] + k] == winner).all())
     assert covered.sum() > 500
 
-    stack, rows = _reduce_stack(sc, ts)
+    stack, k6, rows = _reduce_stack(sc, ts)
     rows = torch.as_tensor(rows).permute(0, 2, 3, 1)[covered]
     partial = torch.zeros((ids.shape[0], rows.shape[1])).index_add_(
         0, order.long()[start.long()[t] + k], rows)
@@ -300,7 +447,7 @@ def test_tile_pairs_sum_to_face_reduce(scene, ts):
     got = torch.zeros((bs * nf, rows.shape[1])).index_add_(0, face_of_row,
                                                            partial)
     want = backward_cuda.face_reduce_plain(torch.as_tensor(stack), fim, nf,
-                                           ts)
+                                           k6)
     _close(got.numpy(), want.numpy(), 1e-5, 1e-6)
     assert np.abs(want.numpy()).max() > 0
 

@@ -7,8 +7,9 @@ call to the next (its card route driven on the CPU by
 ``torch_fakes.fake_card_place``), the binning's work counts, with the
 kernels of ``csrc/bin_faces.cu`` stood in for by a fake that writes the
 pair total where they do, and the texture cells the per-face reduction
-expands (``work.k6_cells``), with the backward's kernels stood in for by
-a fake that launches nothing."""
+expands (``work.k6_cells``) and the reductions that build the K6 factors
+(``k6.in_reduce``), with the backward's kernels stood in for by a fake
+that launches nothing."""
 
 import ctypes
 import os
@@ -34,9 +35,9 @@ RASTER = {('nr.raster.shade', 'nr.raster'),
           ('nr.raster.composite', 'nr.raster'),
           ('nr.raster.post', 'nr.raster')}
 # the rasterizer's backward and the vertex gather's, each a root: the
-# backward runs outside the entry point's span
+# backward runs outside the entry point's span; the K6 factors of the ts-2
+# textures are built inside the reduction, so no nr.backward.k6
 BACKWARD = {('nr.backward', None), ('nr.backward.k5', 'nr.backward'),
-            ('nr.backward.k6', 'nr.backward'),
             ('nr.backward.reduce', 'nr.backward'),
             ('nr.backward.scatter', 'nr.backward')}
 
@@ -410,6 +411,8 @@ def test_k6_cells_count_the_expanded_texture_cells(scene, fake_backward,
     nf = 2 * scene[2].shape[1]  # after fill_back
     assert tracing.counts()['launch.face_reduce'] == 1
     assert tracing.counts()['work.k6_cells'] == 2 * nf * ts ** 3
+    # the tile pass built the factors: no factor planes in plain torch
+    assert tracing.counts()['k6.in_reduce'] == 1
 
 
 @pytest.mark.parametrize('step', ['silhouettes', 'no_grad', 'ts5'])
@@ -425,5 +428,6 @@ def test_k6_cells_count_nothing_off_the_factor_path(scene, fake_backward,
     else:
         _textured_step(scene, 5, step == 'ts5')
     assert tracing.counts().get('work.k6_cells', 0) == 0
+    assert tracing.counts().get('k6.in_reduce', 0) == 0
     assert tracing.counts().get('launch.face_reduce', 0) == int(
         step != 'no_grad')

@@ -114,7 +114,8 @@ def test_render_and_grads_match_reference(anti_aliasing):
 @pytest.mark.parametrize('anti_aliasing', [True, False])
 def test_factor_path_equals_the_corner_scatter(anti_aliasing):
     """The texture gradient at ts 4 through the reduction's K6 factors
-    (``texture_cell_factors``, expanded by ``face_reduce_plain``) against
+    (``texture_cell_factors`` of the maps, expanded by
+    ``face_reduce_plain``) against
     the 8-corner scatter that cubes above ts 4 take
     (``texture.grad_textures``), on the same forward maps and a random
     rgb gradient."""
@@ -132,9 +133,12 @@ def test_factor_path_equals_the_corner_scatter(anti_aliasing):
     g_rgb = torch.randn((BS, is_, is_, 3),
                         generator=torch.Generator().manual_seed(8))
     stack = core.channel_stack(settings, maps, g_rgb, None, None, False,
-                               False, TS)
-    assert stack.shape[1] == TS * TS + TS + 3 == 23
-    sums = backward_cuda.face_reduce_plain(stack, fim, nf, TS)
+                               False)
+    assert stack.shape[1] == 0
+    k6 = backward_cuda.K6Maps(settings, TS, maps['z'], maps['weights'],
+                              maps['depth_map'], g_rgb)
+    assert k6.factors(fim).shape[1] == TS * TS + TS + 3 == 23
+    sums = backward_cuda.face_reduce_plain(stack, fim, nf, k6)
     assert sums.shape == (BS * nf, 3 * TS ** 3)
     got = sums.reshape(tx.shape)
     want = tex.grad_textures(settings, fim, maps['z'].permute(0, 2, 3, 1),
