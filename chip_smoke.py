@@ -224,9 +224,10 @@ one ``index_add_`` from the kernel's own inputs; for the segmented sum one
 ``index_add_`` of its rows.  The out-sweep's and the reduction's entries
 also carry the other timings of phase 6, the binning's those of phase 3
 (per device operation, the sync's wait, the model's 24 views), the
-segmented sum's its device time per step from phase 7's profile and phase
-14's numbers at the ts 8 texture scale; the segmented sum's time alone is
-phase 14's, at the main path's vertex scatter.
+segmented sum's its device time per step from phase 7's profile, phase
+14's numbers at the ts 8 texture scale and phase 26's ts-16 step; the
+segmented sum's time alone is phase 14's, at the main path's vertex
+scatter.
 """
 
 import argparse
@@ -2642,6 +2643,188 @@ def _k6_reduce_phase(dev, smi, seed):
     return out
 
 
+# the benchmark's cell of cubes above ts 4 (phase 26), ts 16 at bs 32
+TS16_CELL = 'teapot.train_ts16_b32'
+# the elements of a ts-16 step that phase 26 holds to the plain scatter
+TS16_CHECKED = 2
+
+
+def _span_split(prof, steps):
+    """Device ms a step of a profile of ``steps`` steps by innermost
+    ``nr.*`` span of the launch (the runtime call sharing the operation's
+    correlation id; '(none)' outside every span) and by operation
+    (``_op_name``), and the device operations a step."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+    spans, runtime, device = {}, {}, []
+    for ev in events:
+        cat = ev.get('cat', '')
+        if ev.get('ph') != 'X':
+            continue
+        if cat == 'user_annotation' and ev['name'].startswith(
+                tracing.PREFIX):
+            spans.setdefault(ev['tid'], []).append(
+                (ev['ts'], ev['ts'] + ev['dur'], ev['name']))
+        elif cat in ('cuda_runtime', 'cuda_driver'):
+            corr = ev.get('args', {}).get('correlation')
+            if corr is not None:
+                runtime[corr] = (ev['ts'], ev['tid'])
+        elif cat in ('kernel', 'gpu_memcpy', 'gpu_memset'):
+            device.append(ev)
+    by_span, by_op = {}, {}
+    for ev in device:
+        ms = ev['dur'] / 1e3 / steps
+        key = _op_name(ev['name'])
+        by_op[key] = by_op.get(key, 0.0) + ms
+        at = runtime.get(ev.get('args', {}).get('correlation'))
+        span = '(none)'
+        if at is not None:
+            inner = [sp for sp in spans.get(at[1], ())
+                     if sp[0] <= at[0] <= sp[1]]
+            if inner:
+                span = min(inner, key=lambda sp: sp[1] - sp[0])[2]
+        by_span[span] = by_span.get(span, 0.0) + ms
+
+    def order(d):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1]))
+
+    return dict(device_ms=sum(by_op.values()), ops=len(device) / steps,
+                by_span=order(by_span), by_op=order(by_op))
+
+
+def _ts16_phase(dev, smi, seed):
+    """Phase 26: the path of cubes above ts 4 in ``TS16_CELL`` at its own
+    shape (bs 32, 512^2 raster, ts 16) through the benchmark's
+    ``harness.Program``: K4 sampled in plain torch, the texture gradient by
+    the 8-corner scatter (rows sorted by cell, ``segments.sort_segments``,
+    and summed in order by the segmented sum).  A training step scatters
+    once (``k6.scatter`` 1, ``work.k6_scatter_rows`` ``8 bs is^2``,
+    ``work.k6_scatter_cells`` ``bs nf' ts^3``), reduces no K6 factors,
+    sums its vertex and texture gradients by segments (two launches) and
+    repeats them bit for bit.  For ``TS16_CHECKED`` elements drawn from the
+    seed, the step's texture gradient against ``texture.grad_textures``'s
+    plain version (``index_add_``) on CPU copies of their maps, carried
+    back through the port's lighting and fill_back on the CPU, within
+    ``SEGMENT_TOL`` x the column's max.  The step's peak memory, its time
+    and its device time by innermost ``nr.*`` span and by operation.
+    Returns a dict of the numbers."""
+    from benchmark import harness
+    bench = harness.load_bench(ROOT)
+    _, cfg, mix = harness.load_cell(bench, TS16_CELL, ROOT)
+    prog = harness.Program(nt, cfg, mix, seed, dev)
+    ts, bs = cfg['texture_size'], mix['batch']
+    nf = prog.faces.shape[1]
+    nfp = nf * (2 if cfg['fill_back'] else 1)
+    raster = cfg['image_size'] * (2 if cfg['anti_aliasing'] else 1)
+    prog.call(0)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    steps = []
+    for _ in range(2):
+        tracing.reset()
+        steps.append(prog.call(1)[1])
+        torch.cuda.synchronize()
+        counts = tracing.counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want_counts = {'k6.scatter': 1, 'work.k6_scatter_rows': 8 * bs * raster
+                   * raster, 'work.k6_scatter_cells': bs * nfp * ts ** 3}
+    _require(all(counts.get(k) == v for k, v in want_counts.items())
+             and 'k6.in_reduce' not in counts
+             and counts.get('launch.segment_sum') == 2
+             and counts.get('launch.face_reduce') == 1,
+             f'{TS16_CELL}: a training step counts {counts}; want '
+             f'{want_counts}, no k6.in_reduce, one face_reduce and two '
+             'segment_sum launches')
+    for g in steps[0]:
+        _require(_bits_equal(steps[0][g], steps[1][g]),
+                 f'{TS16_CELL}: the gradient of {g} differs between two '
+                 'steps of one call')
+    got_tex = steps[0]['textures']
+    del steps
+
+    # two elements' texture gradient on the CPU from the card's maps
+    rng = np.random.RandomState(seed % 2 ** 32)
+    idx = sorted(rng.choice(bs, TS16_CHECKED, replace=False).tolist())
+    at = torch.tensor(idx, device=dev)
+    s = RasterizeSettings(image_size=raster, near=float(cfg['near']),
+                          far=float(cfg['far']),
+                          eps=float(cfg['rasterizer_eps']),
+                          return_alpha=False, return_depth=False)
+    r = prog.renderer
+    r.eye = prog.eye(1)
+    v, f, t = (x.index_select(0, at) for x in (
+        prog.vertices, prog.faces, prog.textures))
+    with torch.no_grad():
+        fc, tx = r._lit_faces(v, f, t)
+        _, _, _, maps = core._forward_all(s, fc, tx,
+                                          torch.zeros(3, device=dev))
+    g_rgb = _sum_image_grads(TS16_CHECKED, raster, dev)['g_rgb']
+    tex_maps = [maps['face_index_map'], maps['z'].permute(0, 2, 3, 1),
+                maps['weights'].permute(0, 2, 3, 1), maps['depth_map'],
+                g_rgb]
+    lit_card = tex.grad_textures(s, *tex_maps, tuple(tx.shape))
+    lit_cpu = tex.grad_textures(s, *(x.cpu() for x in tex_maps),
+                                tuple(tx.shape))
+    del fc, tx, maps, tex_maps
+    errs = {}
+
+    def band(name, got, want):
+        got, want = got.cpu().reshape(-1, 3), want.reshape(-1, 3)
+        scale = want.abs().amax(0, keepdim=True)
+        err = (got - want).abs()
+        _require(float(scale.min()) > 0
+                 and bool((err <= SEGMENT_TOL * scale).all()),
+                 f'{TS16_CELL}: {name} differs from the plain version by '
+                 f'{float(err.max())} (column max {scale.tolist()})')
+        errs[name] = float(err.max())
+
+    band('the raster\'s texture gradient', lit_card, lit_cpu)
+    del lit_card
+    cpu = nt.Renderer()
+    for key in ('image_size', 'anti_aliasing', 'fill_back', 'viewing_angle',
+                'near', 'far', 'rasterizer_eps', 'background_color'):
+        setattr(cpu, key, cfg[key])
+    cpu.eye = r.eye.cpu()
+    t_cpu = t.cpu().requires_grad_(True)
+    _, lit = cpu._lit_faces(v.cpu(), f.cpu(), t_cpu)
+    want_tex, = torch.autograd.grad(lit, t_cpu, lit_cpu)
+    band('the step\'s texture gradient', got_tex.index_select(0, at),
+         want_tex)
+    del got_tex, lit, lit_cpu, want_tex, t_cpu, v, f, t
+
+    # the step timed, then profiled
+    step_ms = _time_ms(lambda: prog.call(2), reps=8, warmup=1)
+    with _profile() as prof:
+        for i in range(4):
+            prog.call(i)
+    split = _span_split(prof, 4)
+    del prof
+    out = dict(counts={k: counts[k] for k in want_counts}, peak_bytes=peak,
+               resident_bytes=base, step_ms=step_ms,
+               images_per_s=bs * 1e3 / step_ms, max_abs_err=errs,
+               checked=idx, **split)
+    _log(f'ts > 4 path ({TS16_CELL}, bs {bs}, {raster}^2, ts {ts}) on {smi}:'
+         f' a step scatters once ({out["counts"]}), two segment_sum '
+         f'launches, no K6 in the reduction, gradients bit-equal on a '
+         f'repeat; elements {idx} against the plain index_add_ on the CPU '
+         + ', '.join(f'{k} max abs err {e:.3g}' for k, e in errs.items())
+         + f' ({SEGMENT_TOL} x column max); peak {peak} bytes '
+         f'({peak / 2 ** 30:.3f} GiB; {base} resident before the step); '
+         f'{step_ms:.3f} ms a step ({out["images_per_s"]:.1f} images/s), '
+         f'{split["device_ms"]:.3f} ms of device time in '
+         f'{split["ops"]:.1f} operations; by span '
+         + json.dumps({k: round(x, 3) for k, x in split['by_span'].items()})
+         + '; by operation ' + json.dumps(
+             {k: round(x, 3) for k, x in list(split['by_op'].items())[:16]}))
+    del prog
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -3657,6 +3840,10 @@ def main():
     extra['face_reduce']['teapot_cells'] = _k6_reduce_phase(dev, smi,
                                                             args.seed)
 
+    # ---- 26. the path of cubes above ts 4, at ts 16 ----
+    torch.cuda.empty_cache()
+    extra['segment_sum'] = dict(ts16_cell=_ts16_phase(dev, smi, args.seed))
+
     sources = {
         'forward_shaded': ('neural_renderer_torch/csrc/forward_shaded.cu',
                            'neural_renderer_tpu/rasterize/'
@@ -3697,7 +3884,7 @@ def main():
     bounds['segment_sum'] = (seg_main['bound_ms'], seg_main['bound_by'])
     alone['segment_sum'] = seg_main['alone_ms']
     library['segment_sum'] = seg_main['library_ms']
-    extra['segment_sum'] = dict(step_profile_ms=segment_step_ms,
+    extra['segment_sum'].update(step_profile_ms=segment_step_ms,
                                 ts8_texture_scale=seg_ts8,
                                 ts8_texture_scatter=sort_ms)
     sources['composite_pool'] = (

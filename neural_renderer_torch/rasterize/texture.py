@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from neural_renderer_torch import tracing
 from neural_renderer_torch.ops import segments
 from neural_renderer_torch.rasterize.config import on_card
 
@@ -179,11 +180,19 @@ def grad_textures(settings, face_index_map, z, weight_map, depth_map,
     float atomics, so every run gives the same bits.  Uncovered pixels'
     rows get the id past the last cell, where the sum never reads.  At
     bs 32, 512^2 and ts 8 that is 67 M rows: 0.8 GB of rows and 1.1 GB of
-    sort keys and permutation (the sort's time is in PERF.md)."""
+    sort keys and permutation (the sort's time is in PERF.md).
+
+    On the card it counts one ``k6.scatter``, the rows handed to the sort
+    (``work.k6_scatter_rows``, ``8 * bs * is^2``) and the cells
+    (``work.k6_scatter_cells``, ``bs * nf * ts^3``): shapes the host
+    knows."""
     nseg = math.prod(texture_shape[:-1])
     if on_card(face_index_map):
         ids, rows = corner_rows(settings, face_index_map, z, weight_map,
                                 depth_map, grad_rgb_map, texture_shape, nseg)
+        tracing.COUNTS['k6.scatter'] += 1
+        tracing.COUNTS['work.k6_scatter_rows'] += ids.shape[0]
+        tracing.COUNTS['work.k6_scatter_cells'] += nseg
         perm, offsets = segments.sort_segments(ids, nseg)
         flat = segments.segment_sum(rows, perm, offsets)
     else:

@@ -43,7 +43,13 @@ spans.  The spans are the layer boundaries of a call:
   * ``k6.in_reduce``: reductions on the card whose tile pass built the K6
     factors from the forward's maps (``backward_cuda.face_reduce`` with
     ``k6``): 1 a training step whose textures of ``ts <= 4`` get a
-    gradient, 0 in a silhouette step, under no_grad or above ts 4.
+    gradient, 0 in a silhouette step, under no_grad or above ts 4;
+  * ``k6.scatter``, ``work.k6_scatter_rows``, ``work.k6_scatter_cells``:
+    texture gradients on the card that took the 8-corner scatter
+    (``texture.grad_textures``, cubes above ts 4), the corner rows each
+    handed to the sort (``8 * bs * is^2``) and the cells it sums onto
+    (``bs * nf * ts^3``); none at ts <= 4, in a silhouette step or under
+    no_grad.  Shapes the host knows.
 
 The plain CPU paths count nothing.
 """
