@@ -4,10 +4,10 @@ Run from the repository root:  python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero; progress goes to stdout):
   1. the card: ``torch.cuda.is_available()``, name and power limit;
-  2. build the CUDA kernels from ``neural_renderer_torch/csrc`` (seven
+  2. build the CUDA kernels from ``neural_renderer_torch/csrc`` (eight
      sources: the five TPU kernels' counterparts, the forward's setup and
-     binning, the segmented sum and the output pass; one nvcc each, all
-     started together)
+     binning, the segmented sum, the output pass and the texture scatter;
+     one nvcc each, all started together)
      and print ptxas' register and shared-memory report;
   3. the forward kernel against its plain PyTorch version on the card,
      inputs from ``--seed``: random 64^2 scenes (no textures, ts 2/3/4) and
@@ -92,10 +92,10 @@ Phases (any failure exits non-zero; progress goes to stdout):
      planes staged and read from device memory, against the plain version;
  14. deterministic scatters: a ts 8 training step at bs 4 twice (vertex and
      texture gradients bitwise equal); the ts 8 texture gradient
-     (``texture.grad_textures``: its rows sorted by cell, then summed by
-     segments) against its plain version on CPU copies of the same maps
-     (1e-6 x column max), and the sort of its rows, the segmented sum and
-     the whole gradient timed at bs 4 and at bs 32; the segmented sum
+     (``texture.grad_textures``: the texture scatter, ``csrc/
+     tex_scatter.cu``) against its plain version on CPU copies of the same
+     maps (1e-6 x column max), every cell written, repeat runs bitwise
+     equal, timed against the plain version on the card; the segmented sum
      (``csrc/segment_sum.cu``) against its plain version (1e-6 x column
      max) at the main path's vertex scatter and at the ts 8 texture
      scatter's scale, timed with its plain version and ``index_add_``;
@@ -200,17 +200,29 @@ Phases (any failure exits non-zero; progress goes to stdout):
      torch, and repeats its gradients bit for bit; on the step's scene the
      reduction against ``face_reduce_plain`` on the card (``SUM_TOL``),
      repeat runs bit-equal; timed with and without the factors beside its
-     bound.
+     bound;
+ 26. the path of cubes above ts 4 in the benchmark's ts-16 cell (bs 32,
+     512^2 raster, ts 16) through ``harness.Program``: a training step
+     launches the texture scatter (``csrc/tex_scatter.cu``) once and
+     repeats its gradients bit for bit; the kernel against
+     ``texture.grad_textures_plain`` on CPU copies (``SEGMENT_TOL``) on two
+     elements through the lighting's backward, and on all 32 at ts 16 and
+     ts 8 and on one at ts 32 (a cube larger than shared memory): repeat
+     runs bitwise equal, a launch into NaN-filled memory leaves no NaN,
+     faces without a pixel all zeros; timed alone against its bound, the
+     plain version and the sort route it replaced; the step's peak memory
+     and device time by span and by operation.
 
 Every profiler window is padded with idle host time at both ends
 (``_profile``); a window that caught none of a kernel's launches is logged
 and profiled again (``_kernel_device_ms``).
 
 The last stdout line is the JSON device record.  The line before it lists
-nine kernels: the five TPU kernels' counterparts, the setup and binning
+ten kernels: the five TPU kernels' counterparts, the setup and binning
 (``bin_faces``), the segmented sum (``segment_sum``), the output pass
-(``composite_pool``) and the face gradient's assembly (``face_grad``), the
-last four not TPU kernels (the JAX package does them in XLA).  Each has its launches on its
+(``composite_pool``), the face gradient's assembly (``face_grad``) and the
+texture scatter (``tex_scatter``), the last five not TPU kernels (the JAX
+package does them in XLA).  Each has its launches on its
 path (phase 7 for the training kernels, phase 11 for the index kernel) and
 per step, on each example's run (phase 17), on phase 19's runs (the
 dataset renderer, the model's training step and its ``tune``) and on the
@@ -220,14 +232,15 @@ its time and the plain version's, its bound (the larger of the bytes it
 must move over the card's memory rate and its operations over the f32 rate,
 from this run's inputs) and the library call's time where PyTorch has one:
 for the per-face reduction, its K6 expansion, the covered rows' gather and
-one ``index_add_`` from the kernel's own inputs; for the segmented sum one
-``index_add_`` of its rows.  The out-sweep's and the reduction's entries
-also carry the other timings of phase 6, the binning's those of phase 3
-(per device operation, the sync's wait, the model's 24 views), the
-segmented sum's its device time per step from phase 7's profile, phase
-14's numbers at the ts 8 texture scale and phase 26's ts-16 step; the
-segmented sum's time alone is phase 14's, at the main path's vertex
-scatter.
+one ``index_add_`` from the kernel's own inputs; for the segmented sum and
+the texture scatter one ``index_add_`` of the rows.  The out-sweep's and
+the reduction's entries also carry the other timings of phase 6, the
+binning's those of phase 3 (per device operation, the sync's wait, the
+model's 24 views), the segmented sum's its device time per step from phase
+7's profile and phase 14's numbers at the ts 8 texture scale, the texture
+scatter's phase 14's ts 8 numbers and phase 26's ts-16 step; the segmented
+sum's time alone is phase 14's, at the main path's vertex scatter, the
+texture scatter's phase 26's, at the ts-16 cell's shape.
 """
 
 import argparse
@@ -278,7 +291,7 @@ TRAINING_KERNELS = ('forward_shaded', 'insweep', 'outsweep', 'face_reduce',
 # every hand-written kernel, as tracing.COUNTS counts its launches
 LAUNCHED = ('forward_shaded', 'forward_index', 'bin_faces', 'insweep',
             'outsweep', 'face_reduce', 'face_grad', 'segment_sum',
-            'composite_pool')
+            'composite_pool', 'tex_scatter')
 # the setup and binning's device operations, by the substrings of their
 # profiler names: its count and fill kernels and CUB's scan (two kernels)
 BINNING_OPS = ('bin_count_kernel', 'bin_fill_kernel', 'DeviceScan')
@@ -2695,22 +2708,137 @@ def _span_split(prof, steps):
                 by_span=order(by_span), by_op=order(by_op))
 
 
+@contextlib.contextmanager
+def _nan_empty():
+    """``torch.empty`` handing out float tensors filled with NaN (others
+    with -1), so that a kernel that leaves an element of its output
+    unwritten shows it."""
+    plain = torch.empty
+
+    def empty(*args, **kwargs):
+        t = plain(*args, **kwargs)
+        return t.fill_(float('nan') if t.is_floating_point() else -1)
+
+    torch.empty = empty
+    try:
+        yield
+    finally:
+        torch.empty = plain
+
+
+def _column_err(got, want, chunk=1 << 24):
+    """(largest |got - want| per column, largest |want| per column) of two
+    ``[..., 3]`` CPU tensors, in chunks of rows."""
+    got, want = got.reshape(-1, 3), want.reshape(-1, 3)
+    err = torch.zeros(3)
+    scale = torch.zeros(3)
+    for i in range(0, want.shape[0], chunk):
+        w = want[i:i + chunk]
+        err = torch.maximum(err, (got[i:i + chunk] - w).abs().amax(0))
+        scale = torch.maximum(scale, w.abs().amax(0))
+    return err, scale
+
+
+def _tex_scatter_check(name, s, tex_maps, shape, bins):
+    """The texture scatter (``texture.grad_textures`` on the card) on one
+    raster's maps ``tex_maps`` (face-index map, z, weights, depth and the
+    rgb gradient, as the backward hands them over) for cubes ``shape``:
+    repeat runs bitwise equal; a launch into NaN-filled memory leaves no
+    NaN and gives the same bits (every cell written); the faces that won no
+    pixel all zeros; against ``texture.grad_textures_plain`` on CPU copies
+    within ``SEGMENT_TOL`` x the column's max.  Returns dict(max_abs_err,
+    faces, faces_won)."""
+    got = tex.grad_textures(s, *tex_maps, shape, bins)
+    again = tex.grad_textures(s, *tex_maps, shape, bins)
+    with _nan_empty():
+        nan = tex.grad_textures(s, *tex_maps, shape, bins)
+    torch.cuda.synchronize()
+    _require(_bits_equal(got, again), f'texture scatter {name}: a repeat '
+             'run differs')
+    _require(not bool(torch.isnan(nan).any()) and _bits_equal(got, nan),
+             f'texture scatter {name}: a launch into NaN-filled memory '
+             'left cells unwritten or differs')
+    del again, nan
+    fim = tex_maps[0]
+    won = torch.zeros(shape[:2], dtype=torch.bool, device=fim.device)
+    b = torch.arange(shape[0], device=fim.device)[:, None, None].expand(
+        fim.shape)
+    won[b[fim >= 0], fim[fim >= 0].long()] = True
+    _require(bool((got[~won] == 0).all()), f'texture scatter {name}: a '
+             'face that won no pixel has a non-zero cell')
+    got = got.cpu()
+    want = tex.grad_textures_plain(s, *(x.cpu() for x in tex_maps), shape)
+    err, scale = _column_err(got, want)
+    _require(float(scale.min()) > 0 and bool((err <= SEGMENT_TOL * scale)
+                                             .all()),
+             f'texture scatter {name}: differs from the plain version by '
+             f'{err.tolist()} (column max {scale.tolist()})')
+    return dict(max_abs_err=float(err.max()), faces=won.numel(),
+                faces_won=int(won.sum()))
+
+
+def _tex_scatter_timing(s, tex_maps, shape, bins):
+    """The texture scatter at one shape: a call (CUDA events), its three
+    kernels alone (the profiler), a memset of the cube (``torch.zeros``, the
+    floor of its writes), its bound (bytes: the rgb gradient, z,
+    weights and depth of each covered pixel, the face-index map, the cube
+    written once; ``tex_scatter_roofline.ts16``'s count), the plain version
+    on the card (``corner_rows`` and one ``index_add_``), that
+    ``index_add_`` alone (the library call) and the route the kernel
+    replaced (the rows sorted by cell, ``segments.sort_segments``, and
+    summed in order, ``segments.segment_sum``).  Dict of ms."""
+    def kern():
+        return tex.grad_textures(s, *tex_maps, shape, bins)
+
+    nseg = int(np.prod(shape[:-1]))
+    covered = int((tex_maps[0] >= 0).sum())
+    is_ = tex_maps[0].shape[1]
+    out = dict(ms=_time_ms(kern, reps=10),
+               alone_ms=_kernel_device_ms(kern, 5, 'tex_scatter'),
+               zero_kernel_ms=_kernel_device_ms(kern, 5,
+                                                'tex_scatter_zero_kernel'),
+               rows_kernel_ms=_kernel_device_ms(kern, 5,
+                                                'tex_scatter_rows_kernel'),
+               main_kernel_ms=_kernel_device_ms(kern, 5, 'tex_scatter_kernel'),
+               memset_ms=_time_ms(lambda: torch.zeros(
+                   shape, device=tex_maps[0].device), reps=10))
+    out['bound_ms'], out['bound_by'] = _bound(
+        40 * covered + 4 * shape[0] * is_ * is_ + 12 * nseg, 64 * covered)
+    out['plain_ms'] = _time_ms(lambda: tex.grad_textures_plain(
+        s, *tex_maps, shape), reps=3)
+    ids, rows = tex.corner_rows(s, *tex_maps, shape, nseg)
+    out['library_ms'] = _time_ms(lambda: torch.zeros(
+        (nseg + 1, 3), device=rows.device).index_add_(0, ids, rows), reps=3)
+
+    def sort_route():
+        perm, offsets = segments.sort_segments(ids, nseg)
+        return segments.segment_sum(rows, perm, offsets)
+
+    out['sort_route_ms'] = _time_ms(sort_route, reps=3)
+    del ids, rows
+    torch.cuda.empty_cache()
+    out.update(covered=covered, cells=nseg)
+    return out
+
+
 def _ts16_phase(dev, smi, seed):
     """Phase 26: the path of cubes above ts 4 in ``TS16_CELL`` at its own
     shape (bs 32, 512^2 raster, ts 16) through the benchmark's
     ``harness.Program``: K4 sampled in plain torch, the texture gradient by
-    the 8-corner scatter (rows sorted by cell, ``segments.sort_segments``,
-    and summed in order by the segmented sum).  A training step scatters
-    once (``k6.scatter`` 1, ``work.k6_scatter_rows`` ``8 bs is^2``,
-    ``work.k6_scatter_cells`` ``bs nf' ts^3``), reduces no K6 factors,
-    sums its vertex and texture gradients by segments (two launches) and
-    repeats them bit for bit.  For ``TS16_CHECKED`` elements drawn from the
-    seed, the step's texture gradient against ``texture.grad_textures``'s
-    plain version (``index_add_``) on CPU copies of their maps, carried
+    the texture scatter (``csrc/tex_scatter.cu``).  A training step
+    launches it once (``launch.tex_scatter`` and ``k6.scatter`` 1,
+    ``work.k6_scatter_cells`` ``bs nf' ts^3``, no rows handed to a sort),
+    reduces no K6 factors, sums its vertex gradient by segments (one
+    launch) and repeats its gradients bit for bit.  For ``TS16_CHECKED``
+    elements drawn from the seed, the step's texture gradient against
+    ``texture.grad_textures_plain`` on CPU copies of their maps, carried
     back through the port's lighting and fill_back on the CPU, within
-    ``SEGMENT_TOL`` x the column's max.  The step's peak memory, its time
-    and its device time by innermost ``nr.*`` span and by operation.
-    Returns a dict of the numbers."""
+    ``SEGMENT_TOL`` x the column's max.  The kernel on the maps of all bs
+    elements with a random rgb gradient at ts 16 and ts 8, and on one
+    element at ts 32 (a cube of 384 KB, more than an SM's shared memory),
+    by ``_tex_scatter_check``, and timed at ts 16 (``_tex_scatter_timing``).
+    The step's peak memory, its time and its device time by innermost
+    ``nr.*`` span and by operation.  Returns a dict of the numbers."""
     from benchmark import harness
     bench = harness.load_bench(ROOT)
     _, cfg, mix = harness.load_cell(bench, TS16_CELL, ROOT)
@@ -2730,15 +2858,16 @@ def _ts16_phase(dev, smi, seed):
         torch.cuda.synchronize()
         counts = tracing.counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    want_counts = {'k6.scatter': 1, 'work.k6_scatter_rows': 8 * bs * raster
-                   * raster, 'work.k6_scatter_cells': bs * nfp * ts ** 3}
+    want_counts = {'launch.tex_scatter': 1, 'k6.scatter': 1,
+                   'work.k6_scatter_cells': bs * nfp * ts ** 3}
     _require(all(counts.get(k) == v for k, v in want_counts.items())
+             and 'work.k6_scatter_rows' not in counts
              and 'k6.in_reduce' not in counts
-             and counts.get('launch.segment_sum') == 2
+             and counts.get('launch.segment_sum') == 1
              and counts.get('launch.face_reduce') == 1,
              f'{TS16_CELL}: a training step counts {counts}; want '
-             f'{want_counts}, no k6.in_reduce, one face_reduce and two '
-             'segment_sum launches')
+             f'{want_counts}, no rows to a sort, no k6.in_reduce, one '
+             'face_reduce and one segment_sum launch')
     for g in steps[0]:
         _require(_bits_equal(steps[0][g], steps[1][g]),
                  f'{TS16_CELL}: the gradient of {g} differs between two '
@@ -2766,20 +2895,18 @@ def _ts16_phase(dev, smi, seed):
     tex_maps = [maps['face_index_map'], maps['z'].permute(0, 2, 3, 1),
                 maps['weights'].permute(0, 2, 3, 1), maps['depth_map'],
                 g_rgb]
-    lit_card = tex.grad_textures(s, *tex_maps, tuple(tx.shape))
-    lit_cpu = tex.grad_textures(s, *(x.cpu() for x in tex_maps),
-                                tuple(tx.shape))
+    lit_card = tex.grad_textures(s, *tex_maps, tuple(tx.shape), maps['bins'])
+    lit_cpu = tex.grad_textures_plain(s, *(x.cpu() for x in tex_maps),
+                                      tuple(tx.shape))
     del fc, tx, maps, tex_maps
     errs = {}
 
     def band(name, got, want):
-        got, want = got.cpu().reshape(-1, 3), want.reshape(-1, 3)
-        scale = want.abs().amax(0, keepdim=True)
-        err = (got - want).abs()
+        err, scale = _column_err(got.cpu(), want)
         _require(float(scale.min()) > 0
                  and bool((err <= SEGMENT_TOL * scale).all()),
                  f'{TS16_CELL}: {name} differs from the plain version by '
-                 f'{float(err.max())} (column max {scale.tolist()})')
+                 f'{err.tolist()} (column max {scale.tolist()})')
         errs[name] = float(err.max())
 
     band('the raster\'s texture gradient', lit_card, lit_cpu)
@@ -2796,6 +2923,63 @@ def _ts16_phase(dev, smi, seed):
          want_tex)
     del got_tex, lit, lit_cpu, want_tex, t_cpu, v, f, t
 
+    # the kernel on all bs elements' maps, a random rgb gradient: ts 16
+    # (the cell's), ts 8, and ts 32 on one element
+    with torch.no_grad():
+        fc, tx = r._lit_faces(prog.vertices, prog.faces, prog.textures)
+        _, _, _, maps = core._forward_all(s, fc, tx,
+                                          torch.zeros(3, device=dev))
+    shape16 = tuple(tx.shape)
+    del tx
+    gen = torch.Generator(device=dev).manual_seed(seed % 2 ** 63)
+    g_rgb = torch.randn((bs, raster, raster, 3), device=dev, generator=gen)
+    tex_maps = [maps['face_index_map'], maps['z'].permute(0, 2, 3, 1),
+                maps['weights'].permute(0, 2, 3, 1), maps['depth_map'],
+                g_rgb]
+    bins = maps['bins']
+    scatter = {}
+    for ts_k, bs_k in ((ts, bs), (8, bs), (32, 1)):
+        name = f'ts {ts_k}, bs {bs_k}'
+        if bs_k == bs:
+            maps_k, bins_k = tex_maps, bins
+        else:
+            with torch.no_grad():
+                _, tx1 = r._lit_faces(prog.vertices[:1], prog.faces[:1],
+                                      prog.textures[:1])
+                _, _, _, one = core._forward_all(s, fc[:1], tx1,
+                                                 torch.zeros(3, device=dev))
+            del tx1
+            maps_k = [one['face_index_map'], one['z'].permute(0, 2, 3, 1),
+                      one['weights'].permute(0, 2, 3, 1), one['depth_map'],
+                      g_rgb[:1]]
+            bins_k = one['bins']
+        shape_k = (bs_k, nfp, ts_k, ts_k, ts_k, 3)
+        scatter[name] = _tex_scatter_check(f'{TS16_CELL} {name}', s, maps_k,
+                                           shape_k, bins_k)
+        torch.cuda.empty_cache()
+    timing = _tex_scatter_timing(s, tex_maps, shape16, bins)
+    del fc, maps, tex_maps, bins, g_rgb
+    torch.cuda.empty_cache()
+    _log(f'texture scatter on {smi}: repeat runs bitwise equal, every cell '
+         f'written (a launch into NaN-filled memory), faces without a pixel '
+         f'all zeros, against the plain version on the CPU ({SEGMENT_TOL} x '
+         'column max): ' + '; '.join(
+             f'{k}: max abs err {c["max_abs_err"]:.3g}, '
+             f'{c["faces"] - c["faces_won"]} of {c["faces"]} faces without '
+             'a pixel' for k, c in scatter.items())
+         + f'; at ts {ts}, bs {bs} ({timing["covered"]} covered pixels, '
+         f'{timing["cells"]} cells): a call {timing["ms"]:.3f} ms, alone '
+         f'{_fmt_ms(timing["alone_ms"])} (tex_scatter_zero_kernel '
+         f'{_fmt_ms(timing["zero_kernel_ms"])}, tex_scatter_rows_kernel '
+         f'{_fmt_ms(timing["rows_kernel_ms"])}, tex_scatter_kernel '
+         f'{_fmt_ms(timing["main_kernel_ms"])}), a memset of the cube '
+         f'{timing["memset_ms"]:.3f} ms, bound '
+         f'{timing["bound_ms"]:.4f} ms by {timing["bound_by"]}; plain on the '
+         f'card {timing["plain_ms"]:.3f} ms (its index_add_ '
+         f'{timing["library_ms"]:.3f} ms), the sort route it replaced '
+         f'(corner rows sorted by cell, segment_sum) '
+         f'{timing["sort_route_ms"]:.3f} ms')
+
     # the step timed, then profiled
     step_ms = _time_ms(lambda: prog.call(2), reps=8, warmup=1)
     with _profile() as prof:
@@ -2806,12 +2990,13 @@ def _ts16_phase(dev, smi, seed):
     out = dict(counts={k: counts[k] for k in want_counts}, peak_bytes=peak,
                resident_bytes=base, step_ms=step_ms,
                images_per_s=bs * 1e3 / step_ms, max_abs_err=errs,
-               checked=idx, **split)
+               checked=idx, scatter=scatter, timing=timing, **split)
     _log(f'ts > 4 path ({TS16_CELL}, bs {bs}, {raster}^2, ts {ts}) on {smi}:'
-         f' a step scatters once ({out["counts"]}), two segment_sum '
-         f'launches, no K6 in the reduction, gradients bit-equal on a '
-         f'repeat; elements {idx} against the plain index_add_ on the CPU '
-         + ', '.join(f'{k} max abs err {e:.3g}' for k, e in errs.items())
+         f' a step launches the texture scatter once ({out["counts"]}), one '
+         f'segment_sum launch, no K6 in the reduction, gradients bit-equal '
+         f'on a repeat; elements {idx} against the plain index_add_ on the '
+         'CPU ' + ', '.join(f'{k} max abs err {e:.3g}'
+                            for k, e in errs.items())
          + f' ({SEGMENT_TOL} x column max); peak {peak} bytes '
          f'({peak / 2 ** 30:.3f} GiB; {base} resident before the step); '
          f'{step_ms:.3f} ms a step ({out["images_per_s"]:.1f} images/s), '
@@ -3612,19 +3797,19 @@ def main():
     _require(_grads_ok(g1) and _grads_equal(g1, g2),
              'the ts 8 step\'s gradients are not finite, non-zero and '
              'bitwise repeatable')
-    _require(launches8['segment_sum'] >= 2, 'the ts 8 step did not sum its '
-             f'vertex and texture gradients by segments: {launches8}')
+    _require(launches8['segment_sum'] >= 1 and launches8['tex_scatter'] >= 1,
+             'the ts 8 step did not sum its vertex gradient by segments and '
+             f'its texture gradient by the texture scatter: {launches8}')
     ts8_ms = _time_ms(lambda: _grad_step(step8, (v[:4], t8)), reps=3)
     _log(f'ts 8 training step, bs 4, {OUT_SIZE}^2 AA: vertex and texture '
          f'gradients bitwise equal on a repeat step; {ts8_ms:.3f} ms a step '
          f'on {smi}; launches {launches8}')
     del g1, g2, t8
 
-    # the ts 8 texture gradient as the backward computes it on the card (its
-    # rows sorted by cell, then the segmented sum) against its plain version
-    # (index_add_ of the rows in order) on CPU copies of the same maps, then
-    # the sort of its rows timed at bs 4 and at the main shape (the bs 4
-    # maps repeated to batch 32)
+    # the ts 8 texture gradient as the backward computes it on the card (the
+    # texture scatter's kernel, from the forward's tile lists) against its
+    # plain version (index_add_ of the corner rows in order) on CPU copies
+    # of the same maps, timed against the plain version on the card
     s8 = RasterizeSettings(image_size=RASTER, eps=1e-3, return_alpha=False,
                            return_depth=False)
     tex8 = rng.uniform(0, 1, (faces.shape[0], 8, 8, 8, 3)).astype(np.float32)
@@ -3634,53 +3819,21 @@ def main():
                 maps8['weights'].permute(0, 2, 3, 1), maps8['depth_map'],
                 grads8['g_rgb'])
     shape8 = tuple(tx8.shape)
+    bins8 = maps8['bins']
     del fc8, tx8, maps8, grads8
-    got = tex.grad_textures(s8, *tex_maps, shape8)
-    again = tex.grad_textures(s8, *tex_maps, shape8)
-    want = tex.grad_textures(s8, *(x.cpu() for x in tex_maps), shape8)
-    torch.cuda.synchronize()
-    _require(bool(torch.equal(got, again)),
-             'ts 8 texture gradient: a repeat run differs')
-    got, want = got.cpu().reshape(-1, 3), want.reshape(-1, 3)
-    scale = want.abs().amax(0, keepdim=True)
-    err = (got - want).abs()
-    _require(float(scale.min()) > 0 and bool((err <= SEGMENT_TOL * scale).all()),
-             'ts 8 texture gradient: differs from the plain version by '
-             f'{float(err.max())} (column max {scale.tolist()})')
-    tex_err = float(err.max())
-    sort_ms = {}
-    for bs_t in (4, BATCH):
-        maps_t = [x.repeat((bs_t // 4,) + (1,) * (x.ndim - 1))
-                  for x in tex_maps]
-        shape_t = (bs_t,) + shape8[1:]
-        nseg_t = int(np.prod(shape_t[:-1]))
-        ids_t, rows_t = tex.corner_rows(s8, *maps_t, shape_t, nseg_t)
-        perm_t, offsets_t = segments.sort_segments(ids_t, nseg_t)
-        sort_ms[bs_t] = dict(
-            rows=ids_t.shape[0], covered=int(offsets_t[-1]),
-            sort_ms=_time_ms(lambda: segments.sort_segments(ids_t, nseg_t),
-                             reps=3),
-            sum_ms=_time_ms(lambda: segments.segment_sum(rows_t, perm_t,
-                                                         offsets_t), reps=3),
-            # the same rows by one index_add_ (uncovered pixels' rows go to
-            # the id past the last cell)
-            index_add_ms=_time_ms(lambda: torch.zeros(
-                (nseg_t + 1, 3), device=dev).index_add_(0, ids_t, rows_t),
-                reps=3),
-            grad_ms=_time_ms(lambda: tex.grad_textures(s8, *maps_t, shape_t),
-                             reps=3))
-        del maps_t, ids_t, rows_t, perm_t, offsets_t
-        torch.cuda.empty_cache()
-    _log(f'ts 8 texture gradient, bs 4, {RASTER}^2: the card against the '
-         f'plain version on the CPU, max abs err {tex_err:.3g} '
-         f'({SEGMENT_TOL} x column max), repeat runs bitwise equal; '
-         + '; '.join(
-             f'bs {b}: {t["rows"]} rows ({t["covered"]} covered), '
-             f'sort_segments {t["sort_ms"]:.3f} ms, segment_sum '
-             f'{t["sum_ms"]:.3f} ms (index_add_ {t["index_add_ms"]:.3f} ms), '
-             f'grad_textures {t["grad_ms"]:.3f} ms'
-             for b, t in sort_ms.items()) + f' on {smi}')
-    del tex_maps, got, again, want, err
+    ts8 = _tex_scatter_check('ts 8, bs 4', s8, tex_maps, shape8, bins8)
+    tex_err = ts8['max_abs_err']
+    ts8['ms'] = _time_ms(lambda: tex.grad_textures(s8, *tex_maps, shape8,
+                                                   bins8), reps=3)
+    ts8['plain_ms'] = _time_ms(lambda: tex.grad_textures_plain(
+        s8, *tex_maps, shape8), reps=3)
+    _log(f'ts 8 texture gradient, bs 4, {RASTER}^2: the texture scatter '
+         f'against the plain version on the CPU, max abs err {tex_err:.3g} '
+         f'({SEGMENT_TOL} x column max), repeat runs bitwise equal, every '
+         f'cell written, {ts8["faces"] - ts8["faces_won"]} faces without a '
+         f'pixel all zeros; a call {ts8["ms"]:.3f} ms, the plain version on '
+         f'the card {ts8["plain_ms"]:.3f} ms on {smi}')
+    del tex_maps, bins8
 
     # the kernel against its plain version at the main path's vertex
     # scatter (bs 32 x 4928 faces x 3 slots onto bs 32 x 1292 vertices) and
@@ -3694,7 +3847,7 @@ def main():
     n8, nseg8 = 8 * 4 * RASTER * RASTER, 4 * nf2 * 8 ** 3
     seg_cases.append(('ts 8 textures', torch.as_tensor(
         rng.randint(0, nseg8 + nseg8 // 3, n8), device=dev), nseg8))
-    seg_worst = tex_err
+    seg_worst = 0.0
     for name, ids, nseg in seg_cases:
         rows, perm, offsets, err = _compare_segments(name, ids, nseg, rng,
                                                      dev)
@@ -3842,7 +3995,8 @@ def main():
 
     # ---- 26. the path of cubes above ts 4, at ts 16 ----
     torch.cuda.empty_cache()
-    extra['segment_sum'] = dict(ts16_cell=_ts16_phase(dev, smi, args.seed))
+    ts16 = _ts16_phase(dev, smi, args.seed)
+    extra['segment_sum'] = {}
 
     sources = {
         'forward_shaded': ('neural_renderer_torch/csrc/forward_shaded.cu',
@@ -3869,8 +4023,7 @@ def main():
                       '_feature_table)', 0.0, launches),
         'segment_sum': ('neural_renderer_torch/csrc/segment_sum.cu',
                         'XLA code, not a TPU kernel: neural_renderer_tpu/ops/'
-                        'vertices_to_faces.py:57-93 and neural_renderer_tpu/'
-                        'rasterize/texture.py:258-285', seg_worst, launches),
+                        'vertices_to_faces.py:57-93', seg_worst, launches),
     })
     times['bin_faces'] = (binning_times['ms'], binning_times['plain_ms'])
     bounds['bin_faces'] = (binning_times['bound_ms'],
@@ -3885,8 +4038,7 @@ def main():
     alone['segment_sum'] = seg_main['alone_ms']
     library['segment_sum'] = seg_main['library_ms']
     extra['segment_sum'].update(step_profile_ms=segment_step_ms,
-                                ts8_texture_scale=seg_ts8,
-                                ts8_texture_scatter=sort_ms)
+                                ts8_texture_scale=seg_ts8)
     sources['composite_pool'] = (
         'neural_renderer_torch/csrc/composite_pool.cu',
         'XLA code, not a TPU kernel: neural_renderer_tpu/rasterize/'
@@ -3908,6 +4060,19 @@ def main():
     library['face_grad'] = None
     extra['face_grad'] = dict(phase23_launches=fgrad['launches'],
                               **fgrad['extra'])
+    sources['tex_scatter'] = (
+        'neural_renderer_torch/csrc/tex_scatter.cu',
+        'XLA code, not a TPU kernel: neural_renderer_tpu/rasterize/'
+        'texture.py:275-289 (the 8-corner scatter of cubes above ts 4)',
+        max([tex_err, *ts16['max_abs_err'].values()]
+            + [c['max_abs_err'] for c in ts16['scatter'].values()]),
+        launches)
+    scatter_t = ts16['timing']
+    times['tex_scatter'] = (scatter_t['ms'], scatter_t['plain_ms'])
+    bounds['tex_scatter'] = (scatter_t['bound_ms'], scatter_t['bound_by'])
+    alone['tex_scatter'] = scatter_t['alone_ms']
+    library['tex_scatter'] = scatter_t['library_ms']
+    extra['tex_scatter'] = dict(ts16_cell=ts16, ts8_bs4=ts8)
     _log(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
         'launches': counts[name],

@@ -74,6 +74,11 @@ LIBRARIES = {
             (I32, (PTR,) * 4 + (I32,) * 3 + (I64, I32, I32) + (PTR,) * 4)},
     'segment_sum': {
         'nr_segment_sum': (I32, (PTR,) * 3 + (I64, I64, I32, PTR, PTR))},
+    'tex_scatter': {
+        'nr_tex_scatter': (I32, (PTR,) * 5 + (I32,) * 5
+                           + (ctypes.POINTER(PTR), ctypes.POINTER(I64), F32,
+                              PTR, I64, PTR)),
+        'nr_tex_scatter_tile': (I32, ())},
 }
 
 _CSRC = pathlib.Path(__file__).resolve().parent / 'csrc'

@@ -1,6 +1,7 @@
 // Segmented row sums for Hopper (sm_90a): the deterministic scatter of the
-// vertex gradient (ops/vertices_to_faces.py) and of the texture gradient of
-// cubes above ts 4 (rasterize/texture.py).
+// vertex gradient (ops/vertices_to_faces.py).  (The texture gradient of
+// cubes above ts 4, once summed here too, has its own kernel,
+// tex_scatter.cu.)
 //
 // Not a TPU kernel: the JAX package computes the same sums with XLA, as an
 // incidence matmul (neural_renderer_tpu/ops/vertices_to_faces.py:66-78) or

@@ -4,10 +4,10 @@
 ascending row order, where ``perm`` orders the rows by segment id (stable)
 and ``offsets`` delimits the segments in that order (``sort_segments``
 makes both from the ids).  It carries the vertex gradient of
-``vertices_to_faces`` and the texture gradient of cubes above ts 4
-(``texture.grad_textures``) on the card, where ``index_add_`` and
-``index_put_`` add with float atomics in an order that changes from run to
-run.
+``vertices_to_faces`` on the card, where ``index_add_`` and ``index_put_``
+add with float atomics in an order that changes from run to run.  (The
+texture gradient of cubes above ts 4 has a kernel of its own,
+``csrc/tex_scatter.cu``, which needs no sort.)
 
 A CUDA tensor runs the hand-written kernel ``csrc/segment_sum.cu`` (or
 raises); a CPU tensor runs ``segment_sum_plain``, an ``index_add_``.

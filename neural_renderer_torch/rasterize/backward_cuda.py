@@ -41,6 +41,7 @@ import torch
 
 from neural_renderer_torch import _build, tracing
 from neural_renderer_torch.rasterize import backward as bwd
+from neural_renderer_torch.rasterize import config
 from neural_renderer_torch.rasterize import texture as tex
 from neural_renderer_torch.rasterize.config import on_card
 
@@ -296,28 +297,6 @@ def face_reduce_plain(stack, face_index_map, nf, k6=None):
     return out.index_add_(0, seg, rows)[:-1]
 
 
-def _check_bins(bins, bs, nf, is_, tile, device):
-    """The forward's tile lists (``forward_cuda.bin_faces`` at the kernel's
-    tile size): int32 tensors on ``device`` of matching lengths."""
-    if bins is None:
-        raise ValueError('face_reduce on the card needs bins, the forward\'s '
-                         'tile lists (forward_shaded(...)["bins"])')
-    if bins['tile'] != tile:
-        raise ValueError(f'bins were made for {bins["tile"]}-pixel tiles; '
-                         f'the kernel reduces {tile}-pixel tiles')
-    nt = -(-is_ // tile)
-    pairs = bins['ids'].shape[0]
-    want = {'start': bs * nt * nt + 1, 'ids': pairs, 'order': pairs,
-            'first': bs * nf + 1}
-    for name, length in want.items():
-        t = bins[name]
-        if (t.dtype != torch.int32 or tuple(t.shape) != (length,)
-                or t.device != device):
-            raise ValueError(f'bins[{name!r}] must be int32 ({length},) on '
-                             f'{device}; got {t.dtype} {tuple(t.shape)} on '
-                             f'{t.device}')
-
-
 def _check_k6(k6, bs, is_, device):
     """``k6``'s cube size and maps (any strides) as the kernel takes them."""
     if not 1 <= k6.ts <= MAX_FACTOR_TS:
@@ -384,7 +363,8 @@ def face_reduce(stack, face_index_map, nf, k6=None, bins=None):
     if bs * is_ * is_ >= 2 ** 31 or bs * nf >= 2 ** 31:
         raise ValueError('face_reduce indexes pixels and faces with int32')
     lib = _build.library('face_reduce')
-    _check_bins(bins, bs, nf, is_, lib.nr_face_reduce_tile(), stack.device)
+    config.check_bins(bins, bs, nf, is_, lib.nr_face_reduce_tile(),
+                      stack.device, 'face_reduce')
     ts = 0 if k6 is None else k6.ts
     stack = stack.contiguous()
     fim = face_index_map.contiguous()

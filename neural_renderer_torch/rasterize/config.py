@@ -141,6 +141,30 @@ def on_card(t):
     return True
 
 
+def check_bins(bins, bs, nf, is_, tile, device, user):
+    """The forward's tile lists (``forward_shaded(...)['bins']``, as
+    ``forward_cuda.bin_faces`` makes them) for a kernel of ``user`` that
+    reads them at ``tile``-pixel tiles: int32 tensors on ``device`` of
+    matching lengths."""
+    if bins is None:
+        raise ValueError(f'{user} on the card needs bins, the forward\'s '
+                         'tile lists (forward_shaded(...)["bins"])')
+    if bins['tile'] != tile:
+        raise ValueError(f'bins were made for {bins["tile"]}-pixel tiles; '
+                         f'{user} reads {tile}-pixel tiles')
+    nt = -(-is_ // tile)
+    pairs = bins['ids'].shape[0]
+    want = {'start': bs * nt * nt + 1, 'ids': pairs, 'order': pairs,
+            'first': bs * nf + 1}
+    for name, length in want.items():
+        t = bins[name]
+        if (t.dtype != torch.int32 or tuple(t.shape) != (length,)
+                or t.device != device):
+            raise ValueError(f'bins[{name!r}] must be int32 ({length},) on '
+                             f'{device}; got {t.dtype} {tuple(t.shape)} on '
+                             f'{t.device}')
+
+
 DEFAULT_IMAGE_SIZE = 256
 DEFAULT_ANTI_ALIASING = True
 DEFAULT_NEAR = 0.1

@@ -15,7 +15,9 @@ K7 channels when depth is drawn.  One per-face reduction
 tile lists) sums it and, for ``ts <= 4``, the K6 texture cells, whose
 factors it builds from the forward's maps and the rgb gradient
 (``backward_cuda.K6Maps``; on the card inside its tile pass, for covered
-pixels only, so no factor planes are written).  One pass
+pixels only, so no factor planes are written).  Larger cubes take the
+8-corner scatter (``texture.grad_textures``), on the card one kernel that
+sums each face's cube from the same tile lists.  One pass
 (``backward_cuda.face_grad``, a kernel on the card) maps the K5 sums to
 vertex slots and adds the K7 sums into ``grad_faces``.  Only what
 ``ctx.needs_input_grad`` asks for is computed, and a forward that needs no
@@ -195,7 +197,8 @@ def channel_stack(settings, maps, g_rgb, g_alpha, g_depth, k5, k7):
 
 _SAVED = ('face_index_map', 'weights', 'depth_map', 'xy', 'z', 'rgb',
           'global_index_map')
-# the forward kernel's tile lists, which the reduction on the card needs
+# the forward kernel's tile lists, which the reduction and the texture
+# scatter on the card need
 _BINS = ('start', 'ids', 'order', 'first')
 
 
@@ -271,7 +274,7 @@ class RasterizeCore(torch.autograd.Function):
                     grad_textures = tex.grad_textures(
                         s, fim, maps['z'].permute(0, 2, 3, 1),
                         maps['weights'].permute(0, 2, 3, 1),
-                        maps['depth_map'], g_rgb, tex_shape)
+                        maps['depth_map'], g_rgb, tex_shape, bins)
             else:
                 grad_textures = torch.zeros(tex_shape, dtype=torch.float32,
                                             device=dev)

@@ -13,8 +13,10 @@ recomputed from the saved maps.  For ``ts <= 4`` the per-face reduction
 (``texture_channels_cells`` is the plain expansion); on the card its
 kernel builds the factors itself from the maps, covered pixels only, and
 these functions are its plain version.  Larger cubes take the 8-corner
-scatter ``grad_textures``, as the JAX package does, summed in a fixed
-order on the card (``ops/segments.py``).
+scatter ``grad_textures``, as the JAX package does: on the card one
+hand-written kernel (``csrc/tex_scatter.cu``) sums each face's cube from
+the forward's tile lists in a fixed order, and ``corner_rows`` with one
+``index_add_`` is its plain version.
 
 Deliberate fix vs the reference: K4 reads the winning face's vertex depths
 from batch 0 for every batch element (``rasterize.py:389`` indexes
@@ -27,8 +29,8 @@ import math
 
 import torch
 
-from neural_renderer_torch import tracing
-from neural_renderer_torch.ops import segments
+from neural_renderer_torch import _build, tracing
+from neural_renderer_torch.rasterize import config
 from neural_renderer_torch.rasterize.config import on_card
 
 
@@ -166,39 +168,88 @@ def corner_rows(settings, face_index_map, z, weight_map, depth_map,
 
 
 def grad_textures(settings, face_index_map, z, weight_map, depth_map,
-                  grad_rgb_map, texture_shape):
+                  grad_rgb_map, texture_shape, bins=None):
     """K6 by the 8-corner scatter, for any ts (the backward uses it for
     ts > 4): ``grad[b, f, isc] += w_pn * grad_rgb[pixel]`` for the 8 corners
     of every covered pixel, over ``bs * nf * ts^3`` cells
-    (``corner_rows``).  grad_rgb_map: ``[bs, is, is, 3]``.  Returns
-    ``texture_shape``.
+    (``corner_rows``).  z, weight_map: ``[bs, is, is, 3]`` and
+    grad_rgb_map ``[bs, is, is, 3]``, any strides; depth_map
+    ``[bs, is, is]``.  Returns ``texture_shape``.
 
-    A CPU tensor takes the plain version: ``index_add_`` of the rows in
-    order, uncovered pixels' zeros onto cell 0.  A CUDA tensor sorts the
-    rows by cell, stable, and sums each cell's rows in that order with the
-    segmented-sum kernel (``ops/segments.py``): the same order, and no
-    float atomics, so every run gives the same bits.  Uncovered pixels'
-    rows get the id past the last cell, where the sum never reads.  At
-    bs 32, 512^2 and ts 8 that is 67 M rows: 0.8 GB of rows and 1.1 GB of
-    sort keys and permutation (the sort's time is in PERF.md).
-
-    On the card it counts one ``k6.scatter``, the rows handed to the sort
-    (``work.k6_scatter_rows``, ``8 * bs * is^2``) and the cells
-    (``work.k6_scatter_cells``, ``bs * nf * ts^3``): shapes the host
-    knows."""
-    nseg = math.prod(texture_shape[:-1])
+    A CPU tensor takes the plain version (``grad_textures_plain``).  A
+    CUDA tensor launches ``csrc/tex_scatter.cu`` (``_tex_scatter``), which
+    needs ``bins``, the forward's tile lists
+    (``forward_shaded(...)['bins']``).  On the card it counts one
+    ``k6.scatter`` and the cells it writes (``work.k6_scatter_cells``,
+    ``bs * nf * ts^3``): shapes the host knows."""
     if on_card(face_index_map):
-        ids, rows = corner_rows(settings, face_index_map, z, weight_map,
-                                depth_map, grad_rgb_map, texture_shape, nseg)
-        tracing.COUNTS['k6.scatter'] += 1
-        tracing.COUNTS['work.k6_scatter_rows'] += ids.shape[0]
-        tracing.COUNTS['work.k6_scatter_cells'] += nseg
-        perm, offsets = segments.sort_segments(ids, nseg)
-        flat = segments.segment_sum(rows, perm, offsets)
-    else:
-        ids, rows = corner_rows(settings, face_index_map, z, weight_map,
-                                depth_map, grad_rgb_map, texture_shape, 0)
-        flat = torch.zeros((nseg, 3), dtype=torch.float32,
-                           device=face_index_map.device).index_add_(
-                               0, ids, rows)
+        return _tex_scatter(settings, face_index_map, z, weight_map,
+                            depth_map, grad_rgb_map, texture_shape, bins)
+    return grad_textures_plain(settings, face_index_map, z, weight_map,
+                               depth_map, grad_rgb_map, texture_shape)
+
+
+def grad_textures_plain(settings, face_index_map, z, weight_map, depth_map,
+                        grad_rgb_map, texture_shape):
+    """The plain PyTorch version of ``grad_textures``: ``index_add_`` of
+    ``corner_rows`` in order, uncovered pixels' zeros onto cell 0."""
+    nseg = math.prod(texture_shape[:-1])
+    ids, rows = corner_rows(settings, face_index_map, z, weight_map,
+                            depth_map, grad_rgb_map, texture_shape, 0)
+    flat = torch.zeros((nseg, 3), dtype=torch.float32,
+                       device=face_index_map.device).index_add_(0, ids, rows)
     return flat.reshape(texture_shape)
+
+
+def _tex_scatter(settings, face_index_map, z, weight_map, depth_map,
+                 grad_rgb_map, texture_shape, bins):
+    """``grad_textures`` on the card: one launch of ``nr_tex_scatter``
+    (three kernels), which writes every cell of a new ``texture_shape``
+    tensor (no fill before it).  A face's cell sums its pixels' corner terms in the order of the
+    face's tile-list rows, then pixel order within a tile: each term is
+    ``corner_rows``' bit for bit, the sums another order than the plain
+    ``index_add_``'s, and the same bits every run.  Cells are addressed
+    with 64 bits (the cube passes 2^31 floats at bs 32, ts 16); pixels,
+    faces and pairs with int32, which it checks."""
+    bs, nf, ts = texture_shape[0], texture_shape[1], texture_shape[2]
+    is_ = face_index_map.shape[1]
+    dev = face_index_map.device
+    if tuple(texture_shape) != (bs, nf, ts, ts, ts, 3) or ts < 2:
+        raise ValueError('the texture scatter takes cubes [bs, nf, ts, ts, '
+                         f'ts, 3] of ts >= 2; got {tuple(texture_shape)}')
+    want = {'face_index_map': (face_index_map, (bs, is_, is_), torch.int32),
+            'z': (z, (bs, is_, is_, 3), torch.float32),
+            'weight_map': (weight_map, (bs, is_, is_, 3), torch.float32),
+            'depth_map': (depth_map, (bs, is_, is_), torch.float32),
+            'grad_rgb_map': (grad_rgb_map, (bs, is_, is_, 3), torch.float32)}
+    for name, (t, shape, dtype) in want.items():
+        if (tuple(t.shape) != shape or t.dtype != dtype
+                or t.device != dev):
+            raise ValueError(f'{name} must be {dtype} {shape} on {dev}; got '
+                             f'{t.dtype} {tuple(t.shape)} on {t.device}')
+    lib = _build.library('tex_scatter')
+    config.check_bins(bins, bs, nf, is_, lib.nr_tex_scatter_tile(), dev,
+                      'the texture scatter')
+    pairs = bins['order'].shape[0]
+    # the pairs' scratch holds one word more, the faces' counter
+    if (bs * is_ * is_ >= 2 ** 31 or bs * nf >= 2 ** 31
+            or 3 * ts ** 3 >= 2 ** 31 or pairs >= 2 ** 31 - 1):
+        raise ValueError('the texture scatter indexes pixels, faces, a '
+                         'cube\'s cells and (tile, face) pairs with int32')
+    fim = face_index_map.contiguous()
+    out = torch.empty(texture_shape, dtype=torch.float32, device=dev)
+    # each face-major row's tile, then the kernel's counter of faces
+    row_tile = torch.empty(pairs + 1, dtype=torch.int32, device=dev)
+    # z, weights and the rgb gradient channel-leading, depth [bs, 1, is, is]
+    maps = (z.permute(0, 3, 1, 2), weight_map.permute(0, 3, 1, 2),
+            depth_map[:, None], grad_rgb_map.permute(0, 3, 1, 2))
+    _build.launch(
+        lib, 'tex_scatter', fim.get_device(), fim.data_ptr(),
+        *(bins[k].data_ptr() for k in ('start', 'order', 'first')),
+        row_tile.data_ptr(), pairs, bs, nf, is_, ts,
+        (_build.PTR * 4)(*(t.data_ptr() for t in maps)),
+        (_build.I64 * 16)(*(n for t in maps for n in t.stride())),
+        ts - 1 - settings.eps, out.data_ptr(), out.numel())
+    tracing.COUNTS['k6.scatter'] += 1
+    tracing.COUNTS['work.k6_scatter_cells'] += bs * nf * ts ** 3
+    return out

@@ -23,7 +23,7 @@ spans.  The spans are the layer boundaries of a call:
   * ``launch.<kernel>``: launches of each hand-written kernel
     (``forward_shaded``, ``forward_index``, ``bin_faces``, ``insweep``,
     ``outsweep``, ``face_reduce``, ``face_grad``, ``segment_sum``,
-    ``composite_pool``), never a plain version's call;
+    ``composite_pool``, ``tex_scatter``), never a plain version's call;
   * ``wait.copy.<site>``: copies of host data to the card made inside a
     call, all by ``config.place``;
   * ``kept.<site>``: host values that ``config.place`` found already on the
@@ -44,12 +44,11 @@ spans.  The spans are the layer boundaries of a call:
     factors from the forward's maps (``backward_cuda.face_reduce`` with
     ``k6``): 1 a training step whose textures of ``ts <= 4`` get a
     gradient, 0 in a silhouette step, under no_grad or above ts 4;
-  * ``k6.scatter``, ``work.k6_scatter_rows``, ``work.k6_scatter_cells``:
-    texture gradients on the card that took the 8-corner scatter
-    (``texture.grad_textures``, cubes above ts 4), the corner rows each
-    handed to the sort (``8 * bs * is^2``) and the cells it sums onto
+  * ``k6.scatter``, ``work.k6_scatter_cells``: texture gradients on the
+    card that took the 8-corner scatter (``texture.grad_textures``, cubes
+    above ts 4, one ``launch.tex_scatter`` each) and the cells it writes
     (``bs * nf * ts^3``); none at ts <= 4, in a silhouette step or under
-    no_grad.  Shapes the host knows.
+    no_grad.  A shape the host knows.
 
 The plain CPU paths count nothing.
 """
