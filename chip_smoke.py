@@ -200,7 +200,7 @@ Phases (any failure exits non-zero; progress goes to stdout):
      torch, and repeats its gradients bit for bit; on the step's scene the
      reduction against ``face_reduce_plain`` on the card (``SUM_TOL``),
      repeat runs bit-equal; timed with and without the factors beside its
-     bound;
+     bound; a step's device time by innermost span (``_span_split``);
  26. the path of cubes above ts 4 in the benchmark's ts-16 cell (bs 32,
      512^2 raster, ts 16) through ``harness.Program``: a training step
      launches the texture scatter (``csrc/tex_scatter.cu``) once and
@@ -211,7 +211,12 @@ Phases (any failure exits non-zero; progress goes to stdout):
      runs bitwise equal, a launch into NaN-filled memory leaves no NaN,
      faces without a pixel all zeros; timed alone against its bound, the
      plain version and the sort route it replaced; the step's peak memory
-     and device time by span and by operation.
+     and device time by span and by operation;
+ 27. what the port's tracing costs: a span's host time under a profiler,
+     as ``record_function`` and as the profiler's fast record, and with
+     no profiler; in each benchmark cell the ms a call untraced and in the
+     harness's two traced stretches, the device-only stretch's idle share
+     and the host stretch's device time by innermost span.
 
 Every profiler window is padded with idle host time at both ends
 (``_profile``); a window that caught none of a kernel's launches is logged
@@ -633,8 +638,10 @@ def _kernel_device_ms(fn, reps, kernel_name):
 
 def _device_events(prof):
     """The card's operations (kernels, copies, memsets) among a profile's
-    events: not the ``record_function`` spans (the port's ``nr.*``), which
-    the profiler mirrors on the device's timeline."""
+    events: not the ``record_function`` spans, which the profiler mirrors
+    on the device's timeline.  The port's ``nr.*`` spans are the
+    profiler's fast records and show on the host's timeline alone; a
+    ``nr.`` name on the device's is still left out."""
     from torch.autograd import DeviceType
     return [ev for ev in prof.events()
             if ev.device_type == DeviceType.CUDA
@@ -2573,6 +2580,15 @@ def _k6_reduce_phase(dev, smi, seed):
             _require(_bits_equal(steps[0][g], steps[1][g]),
                      f'{name}: the gradient of {g} differs between two '
                      'steps of one call')
+        with _profile() as prof:
+            for i in range(4):
+                prog.call(i)
+        split = _span_split(prof, 4)
+        del prof
+        _log(f'{name} on {smi}: {split["device_ms"]:.3f} ms of device time '
+             f'a step in {split["ops"]:.1f} operations; by span '
+             + json.dumps({k: round(x, 3)
+                           for k, x in split['by_span'].items()}))
 
         # the reduction on the step's scene
         raster = cfg['image_size'] * (2 if cfg['anti_aliasing'] else 1)
@@ -2631,6 +2647,7 @@ def _k6_reduce_phase(dev, smi, seed):
                 bs * raster * raster, cov, stack.shape[1], t, bs * nfp))
         ms['covered'] = cov
         ms['max_abs_err'] = {k: e for k, (e, _) in errs.items()}
+        ms['by_span'] = split['by_span']
         out[name] = ms
         _log(f'K6 in the reduction ({name}, bs {bs}, {raster}^2, ts {ts}) '
              f'on {smi}: a step reduces once with the factors from the maps '
@@ -2665,8 +2682,10 @@ TS16_CHECKED = 2
 def _span_split(prof, steps):
     """Device ms a step of a profile of ``steps`` steps by innermost
     ``nr.*`` span of the launch (the runtime call sharing the operation's
-    correlation id; '(none)' outside every span) and by operation
-    (``_op_name``), and the device operations a step."""
+    correlation id, on the span's thread; '(none)' outside every span) and
+    by operation (``_op_name``), and the device operations a step.  A span
+    is the program's whatever its category in the trace: ``cpu_op`` (the
+    port's fast records) or ``user_annotation`` (``record_function``)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, 'trace.json')
         prof.export_chrome_trace(path)
@@ -2677,7 +2696,7 @@ def _span_split(prof, steps):
         cat = ev.get('cat', '')
         if ev.get('ph') != 'X':
             continue
-        if cat == 'user_annotation' and ev['name'].startswith(
+        if cat in ('cpu_op', 'user_annotation') and ev['name'].startswith(
                 tracing.PREFIX):
             spans.setdefault(ev['tid'], []).append(
                 (ev['ts'], ev['ts'] + ev['dur'], ev['name']))
@@ -3007,6 +3026,88 @@ def _ts16_phase(dev, smi, seed):
              {k: round(x, 3) for k, x in list(split['by_op'].items())[:16]}))
     del prog
     torch.cuda.empty_cache()
+    return out
+
+
+# entries of a span that phase 27 times under each record
+SPAN_PROBES = 20000
+
+
+def _span_cost_us(record, n=SPAN_PROBES):
+    """Host us a span costs: ``n`` entries and exits of ``record(name)``,
+    timed in turns with the others, the least of three rounds."""
+    best = None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with record('nr.probe'):
+                pass
+        us = (time.perf_counter() - t0) * 1e6 / n
+        best = us if best is None else min(best, us)
+    return best
+
+
+def _tracing_phase(dev, smi, seed):
+    """Phase 27: what the port's tracing costs on the card's host.  The us
+    a span costs while a profiler of the host and the card runs, entered
+    as ``torch.profiler.record_function`` (the spans before) and as the
+    profiler's fast record (``tracing.span``'s), and ``tracing.span`` with
+    no profiler.  Then in each benchmark cell, through ``harness.Program``
+    at the cell's own shape: ms a call of ``trace_calls`` untraced calls,
+    of the harness's device-only traced stretch and of its host traced
+    stretch (``harness._profiled``, both from a synchronized start to the
+    synchronize that ends them), in two rounds; the device-only stretch's
+    idle share (``trace.idle_pct``, what ``device_idle_pct.*`` reads) and
+    the host stretch's device ms a call by innermost span
+    (``_span_split``).  Returns {'span_us': ..., cell: ...}."""
+    from benchmark import harness, trace
+    from torch._C._profiler import _RecordFunctionFast
+    cost = {}
+    with _profile():
+        for rnd in ('', '_again'):
+            cost['record_function' + rnd] = _span_cost_us(
+                torch.profiler.record_function)
+            cost['fast' + rnd] = _span_cost_us(_RecordFunctionFast)
+    cost['off'] = _span_cost_us(lambda name: tracing.span('probe'))
+    out = dict(span_us=cost)
+    _log(f'a span on the host of {smi}, us while a profiler runs: '
+         f'record_function {cost["record_function"]:.3f} / '
+         f'{cost["record_function_again"]:.3f}, fast record '
+         f'{cost["fast"]:.3f} / {cost["fast_again"]:.3f}; tracing.span with '
+         f'no profiler {cost["off"]:.4f}')
+    bench = harness.load_bench(ROOT)
+    for cell in [w['name'] for w in bench['workloads']]:
+        _, cfg, mix = harness.load_cell(bench, cell, ROOT)
+        prog = harness.Program(nt, cfg, mix, seed, dev)
+        n = mix['trace_calls']
+        for i in range(mix['warmup_calls']):
+            prog.call(i)
+        prog.synchronize()
+        ms = dict(untraced=[], device_stretch=[], host_stretch=[])
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for i in range(n):
+                prog.call(i)
+            prog.synchronize()
+            ms['untraced'].append((time.perf_counter() - t0) * 1e3 / n)
+            dev_prof, dev_s = harness._profiled(prog, 0, n, False)
+            ms['device_stretch'].append(dev_s * 1e3 / n)
+            host_prof, host_s = harness._profiled(prog, 0, n, True)
+            ms['host_stretch'].append(host_s * 1e3 / n)
+        rec = trace.record(dev_prof, host_prof, n, dev_s)
+        split = _span_split(host_prof, n)
+        out[cell] = dict(ms=ms, device_idle_pct=trace.idle_pct(rec),
+                         device_ms=split['device_ms'],
+                         by_span=split['by_span'])
+        _log(f'tracing in {cell} on {smi}: ms a call untraced '
+             f'{ms["untraced"]}, device-only stretch '
+             f'{ms["device_stretch"]}, host stretch {ms["host_stretch"]}; '
+             f'device-only idle {out[cell]["device_idle_pct"]}%; host '
+             f'stretch {split["device_ms"]:.3f} device ms a call, by span '
+             + json.dumps({k: round(x, 4)
+                           for k, x in split['by_span'].items()}))
+        del prog, dev_prof, host_prof, rec
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3996,6 +4097,10 @@ def main():
     # ---- 26. the path of cubes above ts 4, at ts 16 ----
     torch.cuda.empty_cache()
     ts16 = _ts16_phase(dev, smi, args.seed)
+
+    # ---- 27. what tracing costs ----
+    torch.cuda.empty_cache()
+    tracing_cost = _tracing_phase(dev, smi, args.seed)
     extra['segment_sum'] = {}
 
     sources = {
@@ -4073,6 +4178,7 @@ def main():
     alone['tex_scatter'] = scatter_t['alone_ms']
     library['tex_scatter'] = scatter_t['library_ms']
     extra['tex_scatter'] = dict(ts16_cell=ts16, ts8_bs4=ts8)
+    _log(json.dumps({'tracing': tracing_cost}))
     _log(json.dumps({'kernels': [{
         'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
         'launches': counts[name],

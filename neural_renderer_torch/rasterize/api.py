@@ -139,7 +139,8 @@ def _render_pass(faces, textures, background, render_size, pool,
 
     rgb, alpha, depth = rasterize_core(settings, faces, textures, background)
     with tracing.span('raster.post'):
-        return composite_pool.flip_pool(settings, rgb, alpha, depth, pool)
+        return tracing.backward('post', composite_pool.flip_pool, settings,
+                                rgb, alpha, depth, pool)
 
 
 def _prepare(faces, textures, return_rgb):

@@ -112,22 +112,29 @@ class Renderer(object):
         with tracing.span('scene'):
             vertices, faces, _ = self._mesh(vertices, faces)
             with tracing.span('scene.camera'):
-                vertices = self._transform(vertices)
+                vertices = tracing.backward('camera', self._transform,
+                                            vertices)
             with tracing.span('scene.gather'):
                 return vertices_to_faces(vertices, faces, self.face_group,
                                          self.fill_back)
 
     def render_silhouettes(self, vertices, faces):
         with tracing.span('render_silhouettes'):
-            return rasterize_silhouettes(
-                self._camera_faces(vertices, faces), self.image_size,
-                self.anti_aliasing, face_group=self.face_group)
+            return tracing.backward(None, self._silhouettes, vertices, faces)
+
+    def _silhouettes(self, vertices, faces):
+        return rasterize_silhouettes(
+            self._camera_faces(vertices, faces), self.image_size,
+            self.anti_aliasing, face_group=self.face_group)
 
     def render_depth(self, vertices, faces):
         with tracing.span('render_depth'):
-            return rasterize_depth(
-                self._camera_faces(vertices, faces), self.image_size,
-                self.anti_aliasing, face_group=self.face_group)
+            return tracing.backward(None, self._depth, vertices, faces)
+
+    def _depth(self, vertices, faces):
+        return rasterize_depth(
+            self._camera_faces(vertices, faces), self.image_size,
+            self.anti_aliasing, face_group=self.face_group)
 
     def _lit_faces(self, vertices, faces, textures):
         """fill_back, lighting on world-space face coords
@@ -139,36 +146,48 @@ class Renderer(object):
                 faces_lighting = vertices_to_faces(
                     vertices, faces, self.face_group, self.fill_back)
             with tracing.span('scene.lighting'):
-                if self.fill_back:
-                    textures = self._fill_back_textures(textures)
-                textures = lighting(
-                    faces_lighting,
-                    textures,
-                    self.light_intensity_ambient,
-                    self.light_intensity_directional,
-                    self.light_color_ambient,
-                    self.light_color_directional,
-                    self.light_direction)
+                textures = tracing.backward('lighting', self._light,
+                                            faces_lighting, textures)
             with tracing.span('scene.camera'):
-                return self._transform_faces(faces_lighting), textures
+                return tracing.backward('camera', self._transform_faces,
+                                        faces_lighting), textures
+
+    def _light(self, faces_lighting, textures):
+        """fill_back of the texture cubes, then the lighting."""
+        if self.fill_back:
+            textures = self._fill_back_textures(textures)
+        return lighting(
+            faces_lighting,
+            textures,
+            self.light_intensity_ambient,
+            self.light_intensity_directional,
+            self.light_color_ambient,
+            self.light_color_directional,
+            self.light_direction)
 
     def render(self, vertices, faces, textures):
         with tracing.span('render'):
-            face_coords, textures = self._lit_faces(vertices, faces,
-                                                    textures)
-            return rasterize(
-                face_coords, textures, self.image_size, self.anti_aliasing,
-                self.near, self.far, self.rasterizer_eps,
-                self.background_color, self.face_group)
+            return tracing.backward(None, self._rgb, vertices, faces,
+                                    textures)
+
+    def _rgb(self, vertices, faces, textures):
+        face_coords, textures = self._lit_faces(vertices, faces, textures)
+        return rasterize(
+            face_coords, textures, self.image_size, self.anti_aliasing,
+            self.near, self.far, self.rasterizer_eps,
+            self.background_color, self.face_group)
 
     def render_rgbad(self, vertices, faces, textures):
         """All three channels in one pass (no reference Renderer method, but
         rasterize_rgbad exists there; exposed for the batched multi-view
         workload)."""
         with tracing.span('render_rgbad'):
-            face_coords, textures = self._lit_faces(vertices, faces,
-                                                    textures)
-            return rasterize_rgbad(
-                face_coords, textures, self.image_size, self.anti_aliasing,
-                self.near, self.far, self.rasterizer_eps,
-                self.background_color, True, True, True, self.face_group)
+            return tracing.backward(None, self._rgbad, vertices, faces,
+                                    textures)
+
+    def _rgbad(self, vertices, faces, textures):
+        face_coords, textures = self._lit_faces(vertices, faces, textures)
+        return rasterize_rgbad(
+            face_coords, textures, self.image_size, self.anti_aliasing,
+            self.near, self.far, self.rasterizer_eps,
+            self.background_color, True, True, True, self.face_group)

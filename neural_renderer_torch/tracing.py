@@ -2,8 +2,11 @@
 of kernel launches and host waits.
 
 ``span(name)`` marks ``nr.<name>`` on the profiler's timeline while a
-``torch.profiler`` session is active (``record_function``), and costs one
-flag test otherwise.  The profiler takes the device's activity on the same
+``torch.profiler`` session is active, and costs one flag test otherwise.
+A span is the profiler's own fast record (``_RecordFunctionFast``, a
+``cpu_op`` event on the host's timeline, nothing on the device's), not
+``record_function`` (a ``user_annotation``, five to eight times the host
+time a span).  The profiler takes the device's activity on the same
 clock, so every idle gap of the card in a trace lies on the axis of the
 spans.  The spans are the layer boundaries of a call:
 
@@ -14,8 +17,16 @@ spans.  The spans are the layer boundaries of a call:
   * ``nr.raster`` (``.bin_setup``, ``.shade``, ``.merge``, ``.composite``,
     ``.post``): the rasterizer's forward (and ``nr.raster.index``, the
     index kernel's launch, which ``tune`` makes);
-  * ``nr.backward`` (``.k5``, ``.k7``, ``.k6``, ``.reduce``, ``.scatter``):
-    the port's backward nodes, on the autograd engine's thread;
+  * ``nr.backward``, on the autograd engine's thread: a call's backward
+    root, from the engine's reaching the entry point's output until the
+    gradients of its inputs are made (``backward(None, ...)``), so the
+    engine's own adds of gradients fall inside it; under it the port's
+    backward nodes (``nr.backward`` again, with ``.k5``, ``.k7``, ``.k6``,
+    ``.reduce``, ``.scatter``) and the nodes that plain-torch regions of
+    the forward build, each node inside its region's span
+    (``backward(leaf, ...)``): ``nr.backward.lighting`` (the lighting and
+    fill_back of the texture cubes), ``nr.backward.camera`` (the camera
+    transform) and ``nr.backward.post`` (the output pass's flip and pool);
   * ``nr.wait.<kind>.<site>``: one host wait (see ``wait``).
 
 ``COUNTS`` counts, since import or ``reset()``:
@@ -58,6 +69,7 @@ import contextlib
 
 import torch
 import torch.autograd.profiler
+from torch._C._profiler import _RecordFunctionFast
 
 PREFIX = 'nr.'
 COUNTS = collections.Counter()
@@ -67,11 +79,112 @@ _OFF = contextlib.nullcontext()
 
 def span(name):
     """A context marking ``nr.<name>`` while a profiler runs."""
-    # the profiler's own flag: entering record_function while no profiler
-    # runs costs tens of times more
+    # the profiler's own flag: entering a record while no profiler runs
+    # costs tens of times more
     if torch.autograd.profiler._is_profiler_enabled:
-        return torch.profiler.record_function(PREFIX + name)
+        return _RecordFunctionFast(PREFIX + name)
     return _OFF
+
+
+def _tensors(value):
+    """The tensors of a tensor, or of a tuple, list or dict of them."""
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, dict):
+        value = list(value.values())
+    if isinstance(value, (tuple, list)):
+        return [t for v in value for t in _tensors(v)]
+    return []
+
+
+def _opener(held, name):
+    """A backward hook that enters ``name`` into ``held`` while a profiler
+    runs, where no span is held yet."""
+    def hook(*_):
+        if not held and torch.autograd.profiler._is_profiler_enabled:
+            rec = _RecordFunctionFast(name)
+            rec.__enter__()
+            held.append(rec)
+    return hook
+
+
+def _closer(held):
+    """A backward hook that leaves the span ``held`` has, if any."""
+    def hook(*_):
+        if held:
+            held.pop().__exit__(None, None, None)
+    return hook
+
+
+def _mark(node, name):
+    """Run the backward node ``node`` inside a span ``name``."""
+    held = []
+    node.register_prehook(_opener(held, name))
+    node.register_hook(_closer(held))
+
+
+def backward(leaf, fn, *args):
+    """``fn(*args)``, whose backward is marked on the autograd engine's
+    thread while a profiler runs; with none (or no grad mode), only
+    ``fn(*args)`` after one flag test.
+
+    With ``leaf``, each backward node that ``fn`` builds (by its sequence
+    number, so no node of another region) runs inside its own
+    ``nr.backward.<leaf>``: a span by node, as the engine may run other
+    regions' nodes between two of this region's.  With ``leaf`` None, a
+    ``Renderer`` entry point's root: ``nr.backward`` opens as the engine
+    reaches the gradient of an output and closes once the gradients of the
+    tensor ``args`` that need one are all made (a multi-grad hook).  Those
+    ``args`` go into ``fn`` through ``view_as``, a node that launches
+    nothing, as a leaf takes no multi-grad hook under
+    ``torch.autograd.grad``.  The hooks hold no tensor and launch
+    nothing."""
+    if not (torch.autograd.profiler._is_profiler_enabled
+            and torch.is_grad_enabled()):
+        return fn(*args)
+    if leaf is not None:
+        # the sequence numbers this thread gives the nodes ``fn`` builds
+        first = torch._C._autograd._get_sequence_nr()
+        out = fn(*args)
+        last = torch._C._autograd._get_sequence_nr()
+        name = f'{PREFIX}backward.{leaf}'
+        seen = set()
+        todo = [t.grad_fn for t in _tensors(out)]
+        while todo:
+            node = todo.pop()
+            if node is None or node in seen or not (
+                    first <= node._sequence_nr() < last):
+                continue
+            seen.add(node)
+            _mark(node, name)
+            todo.extend(n for n, _ in node.next_functions)
+        return out
+    args = [a.view_as(a) if isinstance(a, torch.Tensor) and a.requires_grad
+            else a for a in args]
+    out = fn(*args)
+    inputs = [a for a in args
+              if isinstance(a, torch.Tensor) and a.requires_grad]
+    outs = [t for t in _tensors(out) if t.requires_grad]
+    if inputs and outs:
+        held = []
+        for t in outs:
+            # a tensor's hook runs before its node's: the root opens
+            # before a region's span on the same node
+            t.register_hook(_opener(held, PREFIX + 'backward'))
+        handle = []
+
+        def close(grads):
+            if held:
+                held.pop().__exit__(None, None, None)
+            # the hook holds the inputs' nodes, which hold the hook: the
+            # cycle goes with the step, not with the collector; a retained
+            # graph's next backward opens no root it could not close
+            held.append(None)
+            handle.pop().remove()
+
+        handle.append(torch.autograd.graph.register_multi_grad_hook(
+            inputs, close))
+    return out
 
 
 def wait(kind, site):

@@ -34,12 +34,17 @@ SCENE = {('nr.scene', None), ('nr.scene.gather', 'nr.scene'),
 RASTER = {('nr.raster.shade', 'nr.raster'),
           ('nr.raster.composite', 'nr.raster'),
           ('nr.raster.post', 'nr.raster')}
-# the rasterizer's backward and the vertex gather's, each a root: the
-# backward runs outside the entry point's span; the K6 factors of the ts-2
-# textures are built inside the reduction, so no nr.backward.k6
-BACKWARD = {('nr.backward', None), ('nr.backward.k5', 'nr.backward'),
-            ('nr.backward.reduce', 'nr.backward'),
-            ('nr.backward.scatter', 'nr.backward')}
+# the backward, on the autograd engine's thread: the call's root, under it
+# the rasterizer's backward and the vertex gather's, and the nodes of the
+# forward's plain-torch regions; the K6 factors of the ts-2 textures are
+# built inside the reduction, so no nr.backward.k6
+ROOT = {('nr.backward', None), ('nr.backward.camera', 'nr.backward'),
+        ('nr.backward.post', 'nr.backward')}
+BACKWARD = ROOT | {('nr.backward', 'nr.backward'),
+                   ('nr.backward.lighting', 'nr.backward'),
+                   ('nr.backward.k5', 'nr.backward'),
+                   ('nr.backward.reduce', 'nr.backward'),
+                   ('nr.backward.scatter', 'nr.backward')}
 
 
 def _under(root, pairs):
@@ -63,10 +68,10 @@ WANT = {
     'render_depth': (
         {('nr.render_depth', None), ('nr.scene', 'nr.render_depth'),
          ('nr.scene.camera', 'nr.scene'), ('nr.scene.gather', 'nr.scene'),
-         ('nr.raster', 'nr.render_depth'), ('nr.backward', None),
+         ('nr.raster', 'nr.render_depth'), ('nr.backward', 'nr.backward'),
          ('nr.backward.k7', 'nr.backward'),
          ('nr.backward.reduce', 'nr.backward'),
-         ('nr.backward.scatter', 'nr.backward')} | RASTER, False),
+         ('nr.backward.scatter', 'nr.backward')} | ROOT | RASTER, False),
 }
 # the entry points run with their backward
 BACKWARD_OF = ('render', 'render_depth')
@@ -118,8 +123,159 @@ def test_no_profiler_no_record_function(scene, monkeypatch):
         raise AssertionError(f'record_function({name!r}) with no profiler')
 
     monkeypatch.setattr(torch.profiler, 'record_function', refuse)
+    monkeypatch.setattr(tracing, '_RecordFunctionFast', refuse)
     assert tracing.span('render') is tracing.span('raster') is tracing._OFF
     _call('render', scene, True)
+
+
+def _grads_of_a_step(scene, ts, record=None):
+    """The vertex and texture gradients of a training step of ``scene``'s
+    teapot at bs 2 with ``ts`` textures; with ``record``, the sequence
+    numbers of the autograd nodes made before the call, by the call and
+    by its lighting region, in it."""
+    r, v, f, _ = scene
+    v = v.expand(2, -1, -1).clone().requires_grad_(True)
+    f = f.expand(2, -1, -1)
+    tx = torch.rand((2, f.shape[1], ts, ts, ts, 3),
+                    generator=torch.Generator().manual_seed(ts))
+    tx.requires_grad_(True)
+    light = r._light
+
+    def lit(*args):
+        first = torch._C._autograd._get_sequence_nr()
+        out = light(*args)
+        record['lighting'] = range(first,
+                                   torch._C._autograd._get_sequence_nr())
+        return out
+
+    if record is not None:
+        record['call'] = torch._C._autograd._get_sequence_nr()
+        r._light = lit
+    try:
+        out = r.render(v, f, tx)
+    finally:
+        r.__dict__.pop('_light', None)
+    return torch.autograd.grad(out.sum(), [v, tx])
+
+
+def _innermost(at, events):
+    """The shortest of ``events`` (name, start, end, ...) that holds the
+    event ``at``, or None."""
+    hold = [e for e in events if e[1] <= at[1] and at[2] <= e[2]]
+    return min(hold, key=lambda e: e[2] - e[1]) if hold else None
+
+
+@pytest.mark.parametrize('ts', [2, 8])
+def test_every_op_of_a_backward_node_runs_under_a_backward_span(scene, ts):
+    """Every aten op that a backward node of a traced training step runs,
+    on the textures' factor path (ts 2) and above it (ts 8), lies inside
+    an ``nr.backward*`` span and inside the root ``nr.backward``, the
+    engine's adds of gradients too, but for the loss's ``SumBackward0``
+    and the inputs' ``ViewBackward0``; the ops of the lighting region's
+    nodes have ``nr.backward.lighting`` as their innermost span.  The
+    gradients are bit-equal to an untraced step's."""
+    want = _grads_of_a_step(scene, ts)
+    seq = {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = _grads_of_a_step(scene, ts, seq)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    by_thread = {}
+    for ev in prof.events():
+        by_thread.setdefault(ev.thread, []).append(
+            (ev.name, ev.time_range.start, ev.time_range.end,
+             ev.sequence_nr))
+    # the inputs' views are the call's first nodes
+    views = range(seq['call'], seq['call'] + 2)
+    checked = lit = 0
+    for evs in by_thread.values():
+        spans = [e for e in evs if e[0].startswith('nr.')]
+        backward = [e for e in spans if e[0].startswith('nr.backward')]
+        # one root a step, holding every other backward span
+        roots = [e for e in backward if _innermost(e, [
+            b for b in backward if b is not e]) is None]
+        assert len(roots) == (1 if backward else 0)
+        assert roots == [] or roots[0][0] == 'nr.backward'
+        nodes = [e for e in evs if e[3] >= 0
+                 and not e[0].startswith(('aten::', 'autograd::'))]
+        steps = [e for e in evs if e[0].startswith(
+            'autograd::engine::evaluate_function: ')]
+        for op in evs:
+            step = _innermost(op, steps)
+            if not op[0].startswith('aten::') or step is None:
+                continue
+            node = _innermost(op, [n for n in nodes
+                                   if n[0] == step[0].split(': ')[1]])
+            node = node or _innermost(step, nodes) or min(
+                (n for n in nodes if _innermost(n, steps) == step),
+                key=lambda n: abs(n[1] - op[1]))
+            if node[0] == 'SumBackward0' or (
+                    node[0] == 'ViewBackward0' and node[3] in views):
+                continue
+            assert _innermost(op, backward) is not None, (op, node)
+            assert _innermost(op, roots) is not None, (op, node)
+            checked += 1
+            if node[3] in seq['lighting'] and _innermost(op, nodes):
+                assert _innermost(op, spans)[0] == 'nr.backward.lighting', op
+                lit += 1
+    assert checked and lit
+
+
+def test_no_profiler_no_hook_and_no_view(scene, monkeypatch):
+    """With no profiler, a training step adds no hook and no view."""
+    def refuse(*args, **kwargs):
+        raise AssertionError('a hook or a view with no profiler')
+
+    monkeypatch.setattr(torch.Tensor, 'view_as', refuse)
+    monkeypatch.setattr(torch.Tensor, 'register_hook', refuse)
+    monkeypatch.setattr(torch.autograd.graph, 'register_multi_grad_hook',
+                        refuse)
+    monkeypatch.setattr(tracing, '_mark', refuse)
+    _grads_of_a_step(scene, 2)
+
+
+def test_a_region_marks_only_the_nodes_it_builds(monkeypatch):
+    marked = []
+    monkeypatch.setattr(tracing, '_mark',
+                        lambda node, name: marked.append((node.name(), name)))
+    p = torch.ones(3, requires_grad=True)
+    a, q = p * 2, p.exp()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = tracing.backward('x', lambda a: (a.sin() + q, {'k': a.cos()}),
+                               a)
+        torch.autograd.grad(out[0].sum() + out[1]['k'].sum(), [p])
+    assert sorted(marked) == [('AddBackward0', 'nr.backward.x'),
+                              ('CosBackward0', 'nr.backward.x'),
+                              ('SinBackward0', 'nr.backward.x')]
+
+
+def test_a_traced_forward_without_backward_frees_its_graph(scene):
+    """The hooks of a traced step hold no node in a cycle: a forward
+    dropped without its backward frees the rasterizer's node and the
+    gather's, and what they saved, with the collector off."""
+    import gc
+    import weakref
+    r, v, f, tx = scene
+    v = v.clone().requires_grad_(True)
+    tx = tx.clone().requires_grad_(True)
+    gc.disable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            out = r.render(v, f, tx)
+        ours, seen, todo = [], set(), [out.grad_fn]
+        while todo:
+            node = todo.pop()
+            if node is None or node in seen:
+                continue
+            seen.add(node)
+            if isinstance(node, torch.autograd.function.BackwardCFunction):
+                ours.append(weakref.ref(node))
+            todo.extend(n for n, _ in node.next_functions)
+        del out, node, seen
+        alive = [w() for w in ours if w() is not None]
+    finally:
+        gc.enable()
+    assert len(ours) == 2 and not alive
 
 
 def test_a_cpu_render_counts_nothing(scene):
