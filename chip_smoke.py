@@ -203,15 +203,20 @@ Phases (any failure exits non-zero; progress goes to stdout):
      bound; a step's device time by innermost span (``_span_split``);
  26. the path of cubes above ts 4 in the benchmark's ts-16 cell (bs 32,
      512^2 raster, ts 16) through ``harness.Program``: a training step
+     folds the light into sampling and the scatter (``light.folded`` 1),
      launches the texture scatter (``csrc/tex_scatter.cu``) once and
-     repeats its gradients bit for bit; the kernel against
-     ``texture.grad_textures_plain`` on CPU copies (``SEGMENT_TOL``) on two
-     elements through the lighting's backward, and on all 32 at ts 16 and
+     repeats its gradients bit for bit; on two elements the image
+     bit-equal to the lit-cube route's, and the kernel with the light
+     against ``texture.grad_textures_plain`` on CPU copies (``SEGMENT_TOL``,
+     the light's gradient ``LIGHT_TOL``, and ``LIGHT_ROUTE_TOL`` against
+     the lit-cube route's by autograd), carried back through fill_back;
+     the kernel with lit cubes and with a light on all 32 at ts 16 and
      ts 8 and on one at ts 32 (a cube larger than shared memory): repeat
      runs bitwise equal, a launch into NaN-filled memory leaves no NaN,
-     faces without a pixel all zeros; timed alone against its bound, the
-     plain version and the sort route it replaced; the step's peak memory
-     and device time by span and by operation;
+     faces without a pixel all zeros; timed alone against its bound, with
+     and without a light, the plain version and the sort route it
+     replaced; the step's peak memory and device time by span and by
+     operation;
  27. what the port's tracing costs: a span's host time under a profiler,
      as ``record_function`` and as the profiler's fast record, and with
      no profiler; in each benchmark cell the ms a call untraced and in the
@@ -270,6 +275,7 @@ import torch.multiprocessing as mp
 import neural_renderer_torch as nt
 from neural_renderer_torch import _build, parallel, tracing
 from neural_renderer_torch.io.image import imread
+from neural_renderer_torch.ops.lighting import light_cubes
 from neural_renderer_torch.ops.vertices_to_faces import vertices_to_faces
 from neural_renderer_torch.ops import segments
 from neural_renderer_torch.rasterize import backward as bwd
@@ -330,6 +336,14 @@ FINGERPRINT_TOL = 1e-3
 # the segmented sum against its plain version (index_add_): another
 # summation order, held to 1e-6 x the column's max |value|
 SEGMENT_TOL = 1e-6
+# the texture scatter's light gradient against its plain version: each
+# face's pixels summed in the kernel's order, held to 1e-6 x its max
+LIGHT_TOL = 1e-6
+# the card's light gradient against the lit-cube route's (autograd of the
+# lit cube back from the plain scatter without a light): the same terms,
+# summed over a face's pixels against over its texels, held to 1e-5 x
+# its max (the CPU reads up to 8.8e-7 at the ts-16 cell's 512^2 raster)
+LIGHT_ROUTE_TOL = 1e-5
 # idle host time at each end of a profiler window (``_profile``), and the
 # windows ``_kernel_device_ms`` tries before it reports "not measured"
 PROFILE_PAD_S = 0.05
@@ -2758,23 +2772,30 @@ def _column_err(got, want, chunk=1 << 24):
     return err, scale
 
 
-def _tex_scatter_check(name, s, tex_maps, shape, bins):
+def _tex_scatter_check(name, s, tex_maps, shape, bins, lighting=()):
     """The texture scatter (``texture.grad_textures`` on the card) on one
     raster's maps ``tex_maps`` (face-index map, z, weights, depth and the
-    rgb gradient, as the backward hands them over) for cubes ``shape``:
-    repeat runs bitwise equal; a launch into NaN-filled memory leaves no
-    NaN and gives the same bits (every cell written); the faces that won no
-    pixel all zeros; against ``texture.grad_textures_plain`` on CPU copies
-    within ``SEGMENT_TOL`` x the column's max.  Returns dict(max_abs_err,
-    faces, faces_won)."""
-    got = tex.grad_textures(s, *tex_maps, shape, bins)
-    again = tex.grad_textures(s, *tex_maps, shape, bins)
+    rgb gradient, as the backward hands them over) for cubes ``shape``,
+    lit, or with ``lighting`` (the unlit cubes and their per-face light)
+    folded: repeat runs bitwise equal; a launch into NaN-filled memory
+    leaves no NaN and gives the same bits (every cell written); the faces
+    that won no pixel all zeros; against ``texture.grad_textures_plain`` on
+    CPU copies within ``SEGMENT_TOL`` x the column's max, the light's
+    gradient within ``LIGHT_TOL`` x its max.  Returns dict(max_abs_err,
+    faces, faces_won), with a light also light_err and light_max."""
+    def run():
+        out = tex.grad_textures(s, *tex_maps, shape, bins, *lighting)
+        return out if lighting else (out,)
+
+    got = run()
+    again = run()
     with _nan_empty():
-        nan = tex.grad_textures(s, *tex_maps, shape, bins)
+        nan = run()
     torch.cuda.synchronize()
-    _require(_bits_equal(got, again), f'texture scatter {name}: a repeat '
-             'run differs')
-    _require(not bool(torch.isnan(nan).any()) and _bits_equal(got, nan),
+    _require(all(_bits_equal(a, b) for a, b in zip(got, again)),
+             f'texture scatter {name}: a repeat run differs')
+    _require(not any(bool(torch.isnan(x).any()) for x in nan)
+             and all(_bits_equal(a, b) for a, b in zip(got, nan)),
              f'texture scatter {name}: a launch into NaN-filled memory '
              'left cells unwritten or differs')
     del again, nan
@@ -2783,31 +2804,47 @@ def _tex_scatter_check(name, s, tex_maps, shape, bins):
     b = torch.arange(shape[0], device=fim.device)[:, None, None].expand(
         fim.shape)
     won[b[fim >= 0], fim[fim >= 0].long()] = True
-    _require(bool((got[~won] == 0).all()), f'texture scatter {name}: a '
-             'face that won no pixel has a non-zero cell')
-    got = got.cpu()
-    want = tex.grad_textures_plain(s, *(x.cpu() for x in tex_maps), shape)
-    err, scale = _column_err(got, want)
+    _require(all(bool((x[~won] == 0).all()) for x in got),
+             f'texture scatter {name}: a face that won no pixel has a '
+             'non-zero cell')
+    got = [x.cpu() for x in got]
+    want = tex.grad_textures_plain(s, *(x.cpu() for x in tex_maps), shape,
+                                   *(x.cpu() for x in lighting))
+    want = want if lighting else (want,)
+    err, scale = _column_err(got[0], want[0])
     _require(float(scale.min()) > 0 and bool((err <= SEGMENT_TOL * scale)
                                              .all()),
              f'texture scatter {name}: differs from the plain version by '
              f'{err.tolist()} (column max {scale.tolist()})')
-    return dict(max_abs_err=float(err.max()), faces=won.numel(),
-                faces_won=int(won.sum()))
+    out = dict(max_abs_err=float(err.max()), faces=won.numel(),
+               faces_won=int(won.sum()))
+    if lighting:
+        out.update(light_err=float((got[1] - want[1]).abs().max()),
+                   light_max=float(want[1].abs().max()))
+        _require(out['light_max'] > 0
+                 and out['light_err'] <= LIGHT_TOL * out['light_max'],
+                 f'texture scatter {name}: the light\'s gradient differs '
+                 f'from the plain version by {out["light_err"]} (max '
+                 f'{out["light_max"]})')
+    return out
 
 
-def _tex_scatter_timing(s, tex_maps, shape, bins):
+def _tex_scatter_timing(s, tex_maps, shape, bins, lighting):
     """The texture scatter at one shape: a call (CUDA events), its three
-    kernels alone (the profiler), a memset of the cube (``torch.zeros``, the
-    floor of its writes), its bound (bytes: the rgb gradient, z,
-    weights and depth of each covered pixel, the face-index map, the cube
-    written once; ``tex_scatter_roofline.ts16``'s count), the plain version
-    on the card (``corner_rows`` and one ``index_add_``), that
-    ``index_add_`` alone (the library call) and the route the kernel
+    kernels alone (the profiler), with lit cubes and (``folded_*``) with
+    ``lighting``, the unlit cubes and their light, a memset of the cube
+    (``torch.zeros``, the floor of its writes), its bound (bytes: the rgb
+    gradient, z, weights and depth of each covered pixel, the face-index
+    map, the cube written once; ``tex_scatter_roofline.ts16``'s count), the
+    plain version on the card (``corner_rows`` and one ``index_add_``),
+    that ``index_add_`` alone (the library call) and the route the kernel
     replaced (the rows sorted by cell, ``segments.sort_segments``, and
     summed in order, ``segments.segment_sum``).  Dict of ms."""
     def kern():
         return tex.grad_textures(s, *tex_maps, shape, bins)
+
+    def folded():
+        return tex.grad_textures(s, *tex_maps, shape, bins, *lighting)
 
     nseg = int(np.prod(shape[:-1]))
     covered = int((tex_maps[0] >= 0).sum())
@@ -2819,6 +2856,10 @@ def _tex_scatter_timing(s, tex_maps, shape, bins):
                rows_kernel_ms=_kernel_device_ms(kern, 5,
                                                 'tex_scatter_rows_kernel'),
                main_kernel_ms=_kernel_device_ms(kern, 5, 'tex_scatter_kernel'),
+               folded_ms=_time_ms(folded, reps=10),
+               folded_alone_ms=_kernel_device_ms(folded, 5, 'tex_scatter'),
+               folded_main_kernel_ms=_kernel_device_ms(
+                   folded, 5, 'tex_scatter_kernel'),
                memset_ms=_time_ms(lambda: torch.zeros(
                    shape, device=tex_maps[0].device), reps=10))
     out['bound_ms'], out['bound_by'] = _bound(
@@ -2843,21 +2884,28 @@ def _tex_scatter_timing(s, tex_maps, shape, bins):
 def _ts16_phase(dev, smi, seed):
     """Phase 26: the path of cubes above ts 4 in ``TS16_CELL`` at its own
     shape (bs 32, 512^2 raster, ts 16) through the benchmark's
-    ``harness.Program``: K4 sampled in plain torch, the texture gradient by
-    the texture scatter (``csrc/tex_scatter.cu``).  A training step
-    launches it once (``launch.tex_scatter`` and ``k6.scatter`` 1,
-    ``work.k6_scatter_cells`` ``bs nf' ts^3``, no rows handed to a sort),
-    reduces no K6 factors, sums its vertex gradient by segments (one
-    launch) and repeats its gradients bit for bit.  For ``TS16_CHECKED``
-    elements drawn from the seed, the step's texture gradient against
-    ``texture.grad_textures_plain`` on CPU copies of their maps, carried
-    back through the port's lighting and fill_back on the CPU, within
-    ``SEGMENT_TOL`` x the column's max.  The kernel on the maps of all bs
-    elements with a random rgb gradient at ts 16 and ts 8, and on one
-    element at ts 32 (a cube of 384 KB, more than an SM's shared memory),
-    by ``_tex_scatter_check``, and timed at ts 16 (``_tex_scatter_timing``).
-    The step's peak memory, its time and its device time by innermost
-    ``nr.*`` span and by operation.  Returns a dict of the numbers."""
+    ``harness.Program``: the cubes unlit with their per-face light, K4
+    sampled in plain torch with the light, the texture and light gradients
+    by the texture scatter (``csrc/tex_scatter.cu``).  A training step
+    folds the light (``light.folded`` 1), launches the scatter once
+    (``launch.tex_scatter`` and ``k6.scatter`` 1, ``work.k6_scatter_cells``
+    ``bs nf' ts^3``, no rows handed to a sort), reduces no K6 factors, sums
+    its vertex gradient by segments (one launch) and repeats its gradients
+    bit for bit.  For ``TS16_CHECKED`` elements drawn from the seed, the
+    image bit-equal to the lit-cube route's (``_lit_faces``, then
+    ``rasterize`` without a light), and the step's texture gradient against
+    ``texture.grad_textures_plain`` with the light on CPU copies of their
+    maps, carried back through fill_back on the CPU, within
+    ``SEGMENT_TOL`` x the column's max, the light's gradient within
+    ``LIGHT_TOL`` and, against the lit-cube route's (autograd of the lit
+    cube back from the plain scatter without a light), within
+    ``LIGHT_ROUTE_TOL``.  The kernel on the maps of all bs elements with a random
+    rgb gradient, lit and with the scene's light, at ts 16 and ts 8, and on
+    one element at ts 32 (a cube of 384 KB, more than an SM's shared
+    memory), by ``_tex_scatter_check``, and timed at ts 16
+    (``_tex_scatter_timing``).  The step's peak memory, its time and its
+    device time by innermost ``nr.*`` span and by operation.  Returns a
+    dict of the numbers."""
     from benchmark import harness
     bench = harness.load_bench(ROOT)
     _, cfg, mix = harness.load_cell(bench, TS16_CELL, ROOT)
@@ -2877,7 +2925,8 @@ def _ts16_phase(dev, smi, seed):
         torch.cuda.synchronize()
         counts = tracing.counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    want_counts = {'launch.tex_scatter': 1, 'k6.scatter': 1,
+    want_counts = {'light.folded': 1, 'launch.tex_scatter': 1,
+                   'k6.scatter': 1,
                    'work.k6_scatter_cells': bs * nfp * ts ** 3}
     _require(all(counts.get(k) == v for k, v in want_counts.items())
              and 'work.k6_scatter_rows' not in counts
@@ -2906,18 +2955,37 @@ def _ts16_phase(dev, smi, seed):
     r.eye = prog.eye(1)
     v, f, t = (x.index_select(0, at) for x in (
         prog.vertices, prog.faces, prog.textures))
+    # the image, folded and by the lit-cube route, as a training step
+    # draws it (a gradient can flow)
+    t_req = t.clone().requires_grad_(True)
+    folded_img = r.render(v, f, t_req).detach()
+    fc, lit = r._lit_faces(v, f, t_req)
+    lit_img = nt.rasterize(fc, lit, r.image_size, r.anti_aliasing, r.near,
+                           r.far, r.rasterizer_eps,
+                           r.background_color).detach()
+    _require(_bits_equal(folded_img, lit_img), f'{TS16_CELL}: the image '
+             'with the light folded differs from the lit-cube route\'s')
+    del t_req, folded_img, fc, lit, lit_img
     with torch.no_grad():
-        fc, tx = r._lit_faces(v, f, t)
+        fc, tx, light = r._shaded_faces(v, f, t)
         _, _, _, maps = core._forward_all(s, fc, tx,
-                                          torch.zeros(3, device=dev))
+                                          torch.zeros(3, device=dev), light)
     g_rgb = _sum_image_grads(TS16_CHECKED, raster, dev)['g_rgb']
     tex_maps = [maps['face_index_map'], maps['z'].permute(0, 2, 3, 1),
                 maps['weights'].permute(0, 2, 3, 1), maps['depth_map'],
                 g_rgb]
-    lit_card = tex.grad_textures(s, *tex_maps, tuple(tx.shape), maps['bins'])
-    lit_cpu = tex.grad_textures_plain(s, *(x.cpu() for x in tex_maps),
-                                      tuple(tx.shape))
-    del fc, tx, maps, tex_maps
+    card_tex, card_light = tex.grad_textures(
+        s, *tex_maps, tuple(tx.shape), maps['bins'], tx, light)
+    cpu_maps = [x.cpu() for x in tex_maps]
+    cpu_tex, cpu_light = tex.grad_textures_plain(
+        s, *cpu_maps, tuple(tx.shape), tx.cpu(), light.cpu())
+    # the lit-cube route's light gradient: autograd of the lit cube back
+    # from the plain scatter of lit cubes
+    light_req = light.cpu().requires_grad_(True)
+    route_light, = torch.autograd.grad(
+        light_cubes(tx.cpu(), light_req), light_req,
+        tex.grad_textures_plain(s, *cpu_maps, tuple(tx.shape)))
+    del fc, tx, light, maps, tex_maps, cpu_maps, light_req
     errs = {}
 
     def band(name, got, want):
@@ -2928,28 +2996,36 @@ def _ts16_phase(dev, smi, seed):
                  f'{err.tolist()} (column max {scale.tolist()})')
         errs[name] = float(err.max())
 
-    band('the raster\'s texture gradient', lit_card, lit_cpu)
-    del lit_card
-    cpu = nt.Renderer()
-    for key in ('image_size', 'anti_aliasing', 'fill_back', 'viewing_angle',
-                'near', 'far', 'rasterizer_eps', 'background_color'):
-        setattr(cpu, key, cfg[key])
-    cpu.eye = r.eye.cpu()
+    band('the raster\'s texture gradient', card_tex, cpu_tex)
+    light_err = float((card_light.cpu() - cpu_light).abs().max())
+    _require(light_err <= LIGHT_TOL * float(cpu_light.abs().max()),
+             f'{TS16_CELL}: the light\'s gradient differs from the plain '
+             f'version by {light_err} (max {float(cpu_light.abs().max())})')
+    errs['the light\'s gradient'] = light_err
+    route_err = float((card_light.cpu() - route_light).abs().max())
+    route_max = float(route_light.abs().max())
+    _require(route_err <= LIGHT_ROUTE_TOL * route_max,
+             f'{TS16_CELL}: the light\'s gradient differs from the lit-cube '
+             f'route\'s by {route_err} (max {route_max})')
+    errs['the light\'s gradient against the lit-cube route'] = route_err
+    del card_tex, card_light, cpu_light, route_light
     t_cpu = t.cpu().requires_grad_(True)
-    _, lit = cpu._lit_faces(v.cpu(), f.cpu(), t_cpu)
-    want_tex, = torch.autograd.grad(lit, t_cpu, lit_cpu)
+    filled = (nt.Renderer._fill_back_textures(t_cpu) if cfg['fill_back']
+              else t_cpu)
+    want_tex, = torch.autograd.grad(filled, t_cpu, cpu_tex)
     band('the step\'s texture gradient', got_tex.index_select(0, at),
          want_tex)
-    del got_tex, lit, lit_cpu, want_tex, t_cpu, v, f, t
+    del got_tex, filled, cpu_tex, want_tex, t_cpu, v, f, t
 
-    # the kernel on all bs elements' maps, a random rgb gradient: ts 16
-    # (the cell's), ts 8, and ts 32 on one element
+    # the kernel on all bs elements' maps, a random rgb gradient, lit and
+    # with the scene's light: ts 16 (the cell's), ts 8, and ts 32 on one
+    # element, the unlit cubes of the two others drawn from the seed
     with torch.no_grad():
-        fc, tx = r._lit_faces(prog.vertices, prog.faces, prog.textures)
-        _, _, _, maps = core._forward_all(s, fc, tx,
-                                          torch.zeros(3, device=dev))
-    shape16 = tuple(tx.shape)
-    del tx
+        fc, tx16, light = r._shaded_faces(prog.vertices, prog.faces,
+                                          prog.textures)
+        _, _, _, maps = core._forward_all(s, fc, tx16,
+                                          torch.zeros(3, device=dev), light)
+    shape16 = tuple(tx16.shape)
     gen = torch.Generator(device=dev).manual_seed(seed % 2 ** 63)
     g_rgb = torch.randn((bs, raster, raster, 3), device=dev, generator=gen)
     tex_maps = [maps['face_index_map'], maps['z'].permute(0, 2, 3, 1),
@@ -2963,11 +3039,9 @@ def _ts16_phase(dev, smi, seed):
             maps_k, bins_k = tex_maps, bins
         else:
             with torch.no_grad():
-                _, tx1 = r._lit_faces(prog.vertices[:1], prog.faces[:1],
-                                      prog.textures[:1])
-                _, _, _, one = core._forward_all(s, fc[:1], tx1,
-                                                 torch.zeros(3, device=dev))
-            del tx1
+                _, _, _, one = core._forward_all(
+                    s, fc[:1], tx16[:1], torch.zeros(3, device=dev),
+                    light[:1])
             maps_k = [one['face_index_map'], one['z'].permute(0, 2, 3, 1),
                       one['weights'].permute(0, 2, 3, 1), one['depth_map'],
                       g_rgb[:1]]
@@ -2975,23 +3049,34 @@ def _ts16_phase(dev, smi, seed):
         shape_k = (bs_k, nfp, ts_k, ts_k, ts_k, 3)
         scatter[name] = _tex_scatter_check(f'{TS16_CELL} {name}', s, maps_k,
                                            shape_k, bins_k)
+        unlit = tx16 if ts_k == ts else torch.rand(
+            shape_k, device=dev, generator=gen)
+        scatter[name + ', light'] = _tex_scatter_check(
+            f'{TS16_CELL} {name}, light', s, maps_k, shape_k, bins_k,
+            (unlit, light[:bs_k]))
+        del unlit
         torch.cuda.empty_cache()
-    timing = _tex_scatter_timing(s, tex_maps, shape16, bins)
-    del fc, maps, tex_maps, bins, g_rgb
+    timing = _tex_scatter_timing(s, tex_maps, shape16, bins, (tx16, light))
+    del fc, tx16, light, maps, tex_maps, bins, g_rgb
     torch.cuda.empty_cache()
     _log(f'texture scatter on {smi}: repeat runs bitwise equal, every cell '
          f'written (a launch into NaN-filled memory), faces without a pixel '
          f'all zeros, against the plain version on the CPU ({SEGMENT_TOL} x '
          'column max): ' + '; '.join(
-             f'{k}: max abs err {c["max_abs_err"]:.3g}, '
-             f'{c["faces"] - c["faces_won"]} of {c["faces"]} faces without '
-             'a pixel' for k, c in scatter.items())
+             f'{k}: max abs err {c["max_abs_err"]:.3g}'
+             + (f', the light\'s {c["light_err"]:.3g} of max '
+                f'{c["light_max"]:.3g}' if 'light_err' in c else '')
+             + f', {c["faces"] - c["faces_won"]} of {c["faces"]} faces '
+             'without a pixel' for k, c in scatter.items())
          + f'; at ts {ts}, bs {bs} ({timing["covered"]} covered pixels, '
          f'{timing["cells"]} cells): a call {timing["ms"]:.3f} ms, alone '
          f'{_fmt_ms(timing["alone_ms"])} (tex_scatter_zero_kernel '
          f'{_fmt_ms(timing["zero_kernel_ms"])}, tex_scatter_rows_kernel '
          f'{_fmt_ms(timing["rows_kernel_ms"])}, tex_scatter_kernel '
-         f'{_fmt_ms(timing["main_kernel_ms"])}), a memset of the cube '
+         f'{_fmt_ms(timing["main_kernel_ms"])}); with the light a call '
+         f'{timing["folded_ms"]:.3f} ms, alone '
+         f'{_fmt_ms(timing["folded_alone_ms"])} (tex_scatter_kernel '
+         f'{_fmt_ms(timing["folded_main_kernel_ms"])}); a memset of the cube '
          f'{timing["memset_ms"]:.3f} ms, bound '
          f'{timing["bound_ms"]:.4f} ms by {timing["bound_by"]}; plain on the '
          f'card {timing["plain_ms"]:.3f} ms (its index_add_ '
@@ -3011,11 +3096,12 @@ def _ts16_phase(dev, smi, seed):
                images_per_s=bs * 1e3 / step_ms, max_abs_err=errs,
                checked=idx, scatter=scatter, timing=timing, **split)
     _log(f'ts > 4 path ({TS16_CELL}, bs {bs}, {raster}^2, ts {ts}) on {smi}:'
-         f' a step launches the texture scatter once ({out["counts"]}), one '
-         f'segment_sum launch, no K6 in the reduction, gradients bit-equal '
-         f'on a repeat; elements {idx} against the plain index_add_ on the '
-         'CPU ' + ', '.join(f'{k} max abs err {e:.3g}'
-                            for k, e in errs.items())
+         f' a step folds the light and launches the texture scatter once '
+         f'({out["counts"]}), one segment_sum launch, no K6 in the '
+         f'reduction, gradients bit-equal on a repeat; elements {idx}: the '
+         'image bit-equal to the lit-cube route\'s, against the plain '
+         'index_add_ on the CPU ' + ', '.join(f'{k} max abs err {e:.3g}'
+                                              for k, e in errs.items())
          + f' ({SEGMENT_TOL} x column max); peak {peak} bytes '
          f'({peak / 2 ** 30:.3f} GiB; {base} resident before the step); '
          f'{step_ms:.3f} ms a step ({out["images_per_s"]:.1f} images/s), '

@@ -77,7 +77,7 @@ LIBRARIES = {
     'tex_scatter': {
         'nr_tex_scatter': (I32, (PTR,) * 5 + (I32,) * 5
                            + (ctypes.POINTER(PTR), ctypes.POINTER(I64), F32,
-                              PTR, I64, PTR)),
+                              PTR, I64) + (PTR,) * 4),
         'nr_tex_scatter_tile': (I32, ())},
 }
 

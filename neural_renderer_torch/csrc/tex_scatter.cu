@@ -65,6 +65,24 @@
 // clamped to [0, ts - 2] besides, which changes nothing where eps > 0 and
 // keeps any input's writes inside its face's cube.
 //
+// The light.  Above ts 4 the renderer hands the rasterizer unlit cubes
+// and the per-face light L [bs * nf, 3] (ops/lighting.face_light); the
+// forward scales each texel it samples by L.  The scatter then takes the
+// unlit cube and L too, and in the same walk:
+//   - scales each term's rgb gradient by the face's light,
+//     w_pn * (g_c * L[f, c]), texture.corner_rows' term with a light;
+//   - sums L's gradient, g_c * s_c over the face's pixels in the walk's
+//     order, s_c the pixel's unlit sample: its 8 corners' w_pn * texel
+//     added in corner order (lane 3 pn + c holds w_pn * texel of its cell,
+//     read from the unlit cube when the cell changes, and lanes 0-2 add
+//     the 8 by shuffles), bit for bit texture.sample_textures' s.
+// So no lit cube is made in the forward and none is un-lit in the
+// backward, and the cube's gradient is still written once, here.  The
+// texels read are 8 cells a run of pixels with one lo triple, about 100 MB
+// at the ts-16 cell's shape, against the cube's 7.75 GB written.  With no
+// light (lit cubes) nothing is scaled and no light gradient is written:
+// the cube's bits are those of the kernel without a light.
+//
 // Addressing: the cube holds bs * nf * ts^3 * 3 floats, past 2^31 at the
 // ts-16 cell's shape, so cube and cell offsets are 64-bit; faces, pixels
 // and pairs are int32 (the wrapper checks).
@@ -93,6 +111,15 @@ struct Maps {
   const float* g;
   long long zs[4], ws[4], ds[4], gs[4];
   float hi;  // the clamp's upper limit, ts - 1 - eps rounded to float
+};
+
+// The per-face light of unlit cubes, or all null (lit cubes): the unlit
+// cube in out's layout, the light [bs * nf, 3] and its gradient, of which
+// every element is written.
+struct Light {
+  const float* tex;
+  const float* light;
+  float* grad;
 };
 
 __device__ __forceinline__ float map_at(const float* p, const long long* s,
@@ -133,13 +160,14 @@ __global__ void __launch_bounds__(kThreads)
 tex_scatter_kernel(const int* __restrict__ fim, const int* __restrict__ first,
                    const int* __restrict__ row_tile, int* __restrict__ next,
                    int nseg, int nf, int is, int nt, int ts, Maps m,
-                   float* __restrict__ out) {
+                   Light lt, float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const long long cube = 3LL * ts * ts * ts;
   const float scale = (float)(ts - 1);
   // this lane's corner and channel (lanes 0-23)
   const int pn = lane / 3;
   const int ch = lane - 3 * pn;
+  const bool lit = lt.light == nullptr;
   for (;;) {
     int seg = 0;
     if (lane == 0) seg = atomicAdd(next, 1);
@@ -152,6 +180,12 @@ tex_scatter_kernel(const int* __restrict__ fim, const int* __restrict__ first,
     int cur = -1;      // the lo triple whose 8 cells the lanes hold
     float acc = 0.0f;  // this lane's running sum of its cell
     float* cell = out;
+    // this lane's channel of the face's light; the unlit texel of its
+    // cell; lanes 0-2: the light's gradient of channel `lane`
+    const float lc =
+        !lit && lane < kLanes ? __ldg(lt.light + 3LL * seg + ch) : 1.0f;
+    float texel = 0.0f;
+    float gl = 0.0f;
     for (int r = first[seg]; r < r1; ++r) {
       const int t = row_tile[r] - b * nt * nt;
       const int y0 = (t / nt) * kTile;
@@ -210,18 +244,33 @@ tex_scatter_kernel(const int* __restrict__ fim, const int* __restrict__ first,
               const int i2 = l2 + (pn >> 2);
               cell = out + base + 3LL * ((i0 * ts + i1) * ts + i2) + ch;
               acc = __ldcg(cell);
+              if (!lit) texel = __ldg(lt.tex + (cell - out));
             }
           }
+          const float gc = ch == 0 ? g0 : ch == 1 ? g1 : g2;
+          float w = 0.0f;
           if (lane < kLanes) {
-            float w = (pn & 1) ? f0 : 1.0f - f0;
+            w = (pn & 1) ? f0 : 1.0f - f0;
             w = w * ((pn & 2) ? f1 : 1.0f - f1);
             w = w * ((pn & 4) ? f2 : 1.0f - f2);
-            acc = acc + w * (ch == 0 ? g0 : ch == 1 ? g1 : g2);
+            acc = acc + w * (lit ? gc : gc * lc);
+          }
+          if (!lit) {
+            // the pixel's unlit sample of channel ch (kept by lanes 0-2,
+            // where ch is the lane, and ch < 3 on every lane): its
+            // corners added in order from zero, as sample_textures adds
+            const float t = w * texel;
+            float smp = 0.0f;
+#pragma unroll
+            for (int q = 0; q < 8; ++q)
+              smp = smp + __shfl_sync(kFull, t, 3 * q + ch);
+            if (lane < 3) gl = gl + gc * smp;
           }
         }
       }
     }
     if (cur >= 0 && lane < kLanes) *cell = acc;
+    if (!lit && lane < 3) lt.grad[3LL * seg + lane] = gl;
   }
 }
 
@@ -243,15 +292,20 @@ int nr_tex_scatter_tile() { return kTile; }
 // faces' counter); maps: the device addresses of z, weights, depth_map and
 // the rgb gradient, strides: their 4 element strides each, in that order
 // (Maps); hi: the clamp's upper limit; out [bs, nf, ts, ts, ts, 3] float32,
-// 16-byte aligned, of out_floats floats, every one written.
+// 16-byte aligned, of out_floats floats, every one written; textures (the
+// unlit cube, out's layout), light and grad_light ([bs, nf, 3] float32,
+// every element written): all three, or all null for lit cubes (Light).
 int nr_tex_scatter(const int* fim, const int* start, const int* order,
                    const int* first, int* row_tile, int pairs, int bs, int nf,
                    int is, int ts, const float* const* maps,
                    const long long* strides, float hi, float* out,
-                   long long out_floats, void* stream) {
+                   long long out_floats, const float* textures,
+                   const float* light, float* grad_light, void* stream) {
   if (pairs < 0 || bs < 0 || nf < 0 || is < 0 || ts < 2 || maps == nullptr
       || strides == nullptr || ((uintptr_t)out & 15) != 0
-      || out_floats != 3LL * bs * nf * ts * ts * ts)
+      || out_floats != 3LL * bs * nf * ts * ts * ts
+      || (textures == nullptr) != (light == nullptr)
+      || (light == nullptr) != (grad_light == nullptr))
     return (int)cudaErrorInvalidValue;
   const int nseg = bs * nf;
   if (nseg == 0) return (int)cudaSuccess;
@@ -300,7 +354,8 @@ int nr_tex_scatter(const int* fim, const int* start, const int* order,
   const int want = (nseg + kWarps - 1) / kWarps;
   const int cap = sms * (per_sm > 0 ? per_sm : 1);
   tex_scatter_kernel<<<want < cap ? want : cap, kThreads, 0, s>>>(
-      fim, first, row_tile, next, nseg, nf, is, nt, ts, m, out);
+      fim, first, row_tile, next, nseg, nf, is, nt, ts, m,
+      Light{textures, light, grad_light}, out);
   return (int)cudaGetLastError();
 }
 

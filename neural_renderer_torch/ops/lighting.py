@@ -1,9 +1,12 @@
-"""Ambient + directional face lighting baked into texture cubes.
+"""Ambient + directional face lighting of texture cubes.
 
 Reference ``neural_renderer/lighting.py:8-52``: face normal =
 normalize(cross(v0 - v1, v2 - v1)), cos = relu(dot(normal, direction)),
 ``light = Ia*Ca + Id*Cd*cos`` broadcast over the whole per-face texture cube.
 Per-face (flat) shading, not per-pixel — matching the reference exactly.
+``face_light`` gives the light alone, one rgb value a face, for the route
+that applies it where the cube is read (``Renderer._light``); ``lighting``
+multiplies the whole cube by it.
 """
 
 import torch
@@ -13,14 +16,13 @@ from neural_renderer_torch.ops.transforms import _normalize
 from neural_renderer_torch.rasterize.config import place
 
 
-def lighting(
-        faces, textures, intensity_ambient=0.5, intensity_directional=0.5,
+def face_light(
+        faces, intensity_ambient=0.5, intensity_directional=0.5,
         color_ambient=(1, 1, 1), color_directional=(1, 1, 1),
         direction=(0, 1, 0)):
-    """Scale ``textures`` by per-face ambient + directional light.
+    """The per-face ambient + directional light ``[bs, nf, 3]``.
 
     faces: ``[bs, nf, 3, 3]`` world-space per-face vertex coords.
-    textures: ``[bs, nf, ts, ts, ts, 3]``.
     """
     bs, nf = faces.shape[:2]
     dev = faces.device
@@ -51,6 +53,25 @@ def lighting(
         cos = torch.maximum(dot, dot.new_zeros(()))
         light = light + (intensity_directional
                          * color_directional[:, None, :] * cos[:, :, None])
+    return light
 
-    light = light[:, :, None, None, None, :]
-    return textures * light
+
+def light_cubes(textures, light):
+    """``textures [bs, nf, ts, ts, ts, 3]`` scaled by the per-face
+    ``light [bs, nf, 3]``."""
+    return textures * light[:, :, None, None, None, :]
+
+
+def lighting(
+        faces, textures, intensity_ambient=0.5, intensity_directional=0.5,
+        color_ambient=(1, 1, 1), color_directional=(1, 1, 1),
+        direction=(0, 1, 0)):
+    """Scale ``textures`` by per-face ambient + directional light
+    (``face_light``).
+
+    faces: ``[bs, nf, 3, 3]`` world-space per-face vertex coords.
+    textures: ``[bs, nf, ts, ts, ts, 3]``.
+    """
+    return light_cubes(textures, face_light(
+        faces, intensity_ambient, intensity_directional, color_ambient,
+        color_directional, direction))

@@ -27,6 +27,7 @@ from neural_renderer_torch.rasterize.config import (
     place,
 )
 from neural_renderer_torch.rasterize import composite_pool, core
+from neural_renderer_torch.rasterize import forward_cuda
 from neural_renderer_torch.rasterize.core import rasterize_core
 
 # API-compat shim for the reference's global unsafe/safe toggle
@@ -103,16 +104,17 @@ class _ValueOfGradTo(torch.autograd.Function):
         return None, g
 
 
-def grad_flows(faces, textures, background):
+def grad_flows(faces, textures, background, light=None):
     """Whether a gradient can flow from a render to its inputs: grad mode
-    on and one of ``faces``, ``textures`` and ``background`` requiring
-    it."""
+    on and one of ``faces``, ``textures``, ``background`` and ``light``
+    requiring it."""
     return torch.is_grad_enabled() and (
         faces.requires_grad or textures.requires_grad
-        or background.requires_grad)
+        or background.requires_grad
+        or (light is not None and light.requires_grad))
 
 
-def _render_pass(faces, textures, background, render_size, pool,
+def _render_pass(faces, textures, background, light, render_size, pool,
                  near, far, eps, return_rgb, return_alpha, return_depth,
                  face_group):
     """One forward + the reference's output formatting (NCHW transpose,
@@ -130,34 +132,55 @@ def _render_pass(faces, textures, background, render_size, pool,
         eps=float(eps), return_rgb=return_rgb, return_alpha=return_alpha,
         return_depth=return_depth, face_group=face_group).validate()
 
-    if on_card(faces) and not grad_flows(faces, textures, background):
-        maps = core.forward_maps(settings, faces, textures)
+    if on_card(faces) and not grad_flows(faces, textures, background,
+                                         light):
+        maps = core.forward_maps(settings, faces, textures, light)
         with tracing.span('raster.post'):
             return composite_pool.composite_pool(
                 settings, core.coverage(maps), maps.get('rgb'),
                 maps['depth_map'], background, pool)
 
-    rgb, alpha, depth = rasterize_core(settings, faces, textures, background)
+    rgb, alpha, depth = rasterize_core(settings, faces, textures, background,
+                                       light)
     with tracing.span('raster.post'):
         return tracing.backward('post', composite_pool.flip_pool, settings,
                                 rgb, alpha, depth, pool)
 
 
-def _prepare(faces, textures, return_rgb):
+def _prepare(faces, textures, return_rgb, light=None):
     """faces/textures as f32 tensors on faces' device, validated; a
-    [bs, nf, 1, 1, 1, 3] zero placeholder when rgb is not drawn."""
+    [bs, nf, 1, 1, 1, 3] zero placeholder when rgb is not drawn.  Returns
+    (faces, textures, light), the light as an f32 ``[bs, nf, 3]`` tensor
+    or None.  A light is taken only where the rasterizer samples the cubes
+    in plain torch (rgb drawn, ts above ``forward_cuda.MAX_FUSED_TS``) and
+    applies it there; smaller cubes come lit (the fused forward and the
+    reduction's K6 read them so)."""
     faces = place(faces, site='api.faces')
     if return_rgb:
         if textures is None:
             raise ValueError('textures are required when return_rgb=True')
         textures = place(textures, faces.device, site='api.textures')
         _check_inputs(faces, textures, True)
+        if light is not None:
+            light = place(light, faces.device, site='api.light')
+            if tuple(light.shape) != tuple(faces.shape[:2]) + (3,):
+                raise ValueError(
+                    'light must be [bs, nf, 3], one rgb value a face; got '
+                    f'{tuple(light.shape)} for faces '
+                    f'{tuple(faces.shape[:2])}')
+            if textures.shape[2] <= forward_cuda.MAX_FUSED_TS:
+                raise ValueError(
+                    'a light is applied where cubes above ts '
+                    f'{forward_cuda.MAX_FUSED_TS} are sampled; light cubes '
+                    f'of ts {textures.shape[2]} before the call')
     else:
+        if light is not None:
+            raise ValueError('a light needs the rgb drawn')
         _check_inputs(faces, None, False)
         bs, nf = faces.shape[:2]
         textures = torch.zeros((bs, nf, 1, 1, 1, 3), dtype=torch.float32,
                                device=faces.device)
-    return faces, textures
+    return faces, textures, light
 
 
 def rasterize_rgbad(
@@ -172,7 +195,8 @@ def rasterize_rgbad(
         return_rgb=True,
         return_alpha=True,
         return_depth=True,
-        face_group=None):
+        face_group=None,
+        light=None):
     """Rasterize NDC faces to RGB / alpha / depth images.
 
     Args mirror the reference ``rasterize_rgbad`` (rasterize.py:900-938):
@@ -186,27 +210,36 @@ def rasterize_rgbad(
       face_group: a ``torch.distributed`` process group over which the
         face list is sharded (``RasterizeSettings.face_group``): faces and
         textures are this rank's slice, every rank gets the whole image.
+      light: ``[bs, nf, 3]``, one rgb value a face by which its cube is
+        scaled, or None where the cubes come lit (the reference's input).
+        Taken only for cubes above ts 4 with rgb drawn (else ValueError).
+        The rgb is that of the lit cubes, but no lit cube is made: the
+        light scales each texel read and each term of the texture
+        gradient, and gets a gradient of its own (counted
+        ``light.folded``).  Under a face group it is this rank's slice.
 
     Returns dict(rgb=[bs,3,H,W], alpha=[bs,H,W], depth=[bs,H,W]) with None
     for unrequested channels.
     """
     with tracing.span('raster'):
-        faces, textures = _prepare(faces, textures, return_rgb)
+        faces, textures, light = _prepare(faces, textures, return_rgb, light)
+        if light is not None:
+            tracing.COUNTS['light.folded'] += 1
         background = _background_array(background_color, faces.device)
         common = (near, far, eps, return_rgb, return_alpha, return_depth,
                   face_group)
         if anti_aliasing == 'approx':
             with torch.no_grad():
-                val = _render_pass(faces, textures, background,
+                val = _render_pass(faces, textures, background, light,
                                    image_size * 2, True, *common)
-            if not grad_flows(faces, textures, background):
+            if not grad_flows(faces, textures, background, light):
                 return val
-            grad = _render_pass(faces, textures, background, image_size,
-                                False, *common)
+            grad = _render_pass(faces, textures, background, light,
+                                image_size, False, *common)
             return {k: None if val[k] is None
                     else _ValueOfGradTo.apply(val[k], grad[k]) for k in val}
         render_size = image_size * 2 if anti_aliasing else image_size
-        return _render_pass(faces, textures, background, render_size,
+        return _render_pass(faces, textures, background, light, render_size,
                             bool(anti_aliasing), *common)
 
 
@@ -214,11 +247,13 @@ def rasterize(
         faces, textures,
         image_size=DEFAULT_IMAGE_SIZE, anti_aliasing=DEFAULT_ANTI_ALIASING,
         near=DEFAULT_NEAR, far=DEFAULT_FAR, eps=DEFAULT_EPS,
-        background_color=DEFAULT_BACKGROUND_COLOR, face_group=None):
-    """RGB images ``[bs, 3, H, W]`` (reference rasterize.py:980-1008)."""
+        background_color=DEFAULT_BACKGROUND_COLOR, face_group=None,
+        light=None):
+    """RGB images ``[bs, 3, H, W]`` (reference rasterize.py:980-1008);
+    ``light`` as ``rasterize_rgbad``'s."""
     return rasterize_rgbad(
         faces, textures, image_size, anti_aliasing, near, far, eps,
-        background_color, True, False, False, face_group)['rgb']
+        background_color, True, False, False, face_group, light)['rgb']
 
 
 def rasterize_silhouettes(
@@ -262,7 +297,8 @@ class Rasterize:
             return_depth=return_depth).validate()
 
     def __call__(self, faces, textures=None):
-        faces, textures = _prepare(faces, textures, self.settings.return_rgb)
+        faces, textures, _ = _prepare(faces, textures,
+                                      self.settings.return_rgb)
         rgb, alpha, depth = rasterize_core(
             self.settings, faces, textures,
             _background_array(self.background_color, faces.device))

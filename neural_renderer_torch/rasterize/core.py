@@ -17,7 +17,9 @@ factors it builds from the forward's maps and the rgb gradient
 (``backward_cuda.K6Maps``; on the card inside its tile pass, for covered
 pixels only, so no factor planes are written).  Larger cubes take the
 8-corner scatter (``texture.grad_textures``), on the card one kernel that
-sums each face's cube from the same tile lists.  One pass
+sums each face's cube from the same tile lists; where they come unlit with
+their per-face light (``Renderer._light``), sampling and that scatter
+apply the light, and the scatter gives its gradient too.  One pass
 (``backward_cuda.face_grad``, a kernel on the card) maps the K5 sums to
 vertex slots and adds the K7 sums into ``grad_faces``.  Only what
 ``ctx.needs_input_grad`` asks for is computed, and a forward that needs no
@@ -82,11 +84,13 @@ def _merge_face_group(settings, out, nf_local):
     return res
 
 
-def forward_maps(settings, faces, textures):
+def forward_maps(settings, faces, textures, light=None):
     """The forward kernel's maps (``forward_cuda.forward_shaded``), rgb
-    sampled in when the kernel did not shade it, merged across the face
-    group where there is one (``_merge_face_group``).  rgb is the
-    uncomposited ``[bs, 3, is, is]``, present when drawn."""
+    sampled in when the kernel did not shade it (with ``light``, the
+    per-face light ``[bs, nf, 3]`` of unlit cubes above ts 4, applied to
+    each texel sampled), merged across the face group where there is one
+    (``_merge_face_group``).  rgb is the uncomposited ``[bs, 3, is, is]``,
+    present when drawn."""
     fuse_rgb = (settings.return_rgb
                 and textures.shape[2] <= forward_cuda.MAX_FUSED_TS)
     out = forward_cuda.forward_shaded(settings, faces,
@@ -98,7 +102,7 @@ def forward_maps(settings, faces, textures):
                 settings, textures, out['face_index_map'],
                 out['z'].permute(0, 2, 3, 1),
                 out['weights'].permute(0, 2, 3, 1),
-                out['depth_map']).permute(0, 3, 1, 2)
+                out['depth_map'], light).permute(0, 3, 1, 2)
     if settings.face_group is not None:
         with tracing.span('raster.merge'):
             out = _merge_face_group(settings, out, faces.shape[1])
@@ -112,7 +116,7 @@ def coverage(maps):
     return maps.get('global_index_map', maps['face_index_map'])
 
 
-def _forward_all(settings, faces, textures, background):
+def _forward_all(settings, faces, textures, background, light=None):
     """Full forward: (rgb, alpha, depth, maps).
 
     background: f32 ``[3]`` (static color) or ``[bs, 3]`` (per batch
@@ -120,7 +124,7 @@ def _forward_all(settings, faces, textures, background):
     shape-(1,) zeros; rgb is the *composited* map ``[bs, is, is, 3]``.
     maps: ``forward_maps``.
     """
-    out = forward_maps(settings, faces, textures)
+    out = forward_maps(settings, faces, textures, light)
     with tracing.span('raster.composite'):
         covered = coverage(out) >= 0
         dev = faces.device
@@ -204,15 +208,19 @@ _BINS = ('start', 'ids', 'order', 'first')
 
 class RasterizeCore(torch.autograd.Function):
     """faces [bs,nf,3,3] NDC, textures [bs,nf,ts,ts,ts,3],
-    background [3] or [bs,3] -> (rgb [bs,is,is,3], alpha, depth [bs,is,is]).
+    background [3] or [bs,3], light [bs,nf,3] or None
+    -> (rgb [bs,is,is,3], alpha, depth [bs,is,is]).
 
-    The gradient is the reference's *defined* approximate backward (see the
-    module docstring) with respect to faces, textures and background."""
+    With ``light`` (cubes above ts 4, unlit) the rgb is that of the cubes
+    scaled by it, and the texture scatter applies it to the texture
+    gradient's terms and gives its gradient.  The gradient is the
+    reference's *defined* approximate backward (see the module docstring)
+    with respect to faces, textures, background and light."""
 
     @staticmethod
-    def forward(ctx, settings, faces, textures, background):
+    def forward(ctx, settings, faces, textures, background, light=None):
         rgb, alpha, depth, out = _forward_all(settings, faces, textures,
-                                              background)
+                                              background, light)
         ctx.settings = settings
         ctx.shapes = (tuple(faces.shape), tuple(textures.shape),
                       tuple(background.shape))
@@ -222,8 +230,11 @@ class RasterizeCore(torch.autograd.Function):
             out.setdefault('global_index_map', None)
             bins = out.get('bins')
             ctx.tile = bins['tile'] if bins else None
+            # the light's gradient reads the unlit cubes' texels
             ctx.save_for_backward(*(out[k] for k in _SAVED),
-                                  *(bins[k] if bins else None for k in _BINS))
+                                  *(bins[k] if bins else None for k in _BINS),
+                                  textures if light is not None else None,
+                                  light)
         return rgb, alpha, depth
 
     @staticmethod
@@ -238,9 +249,10 @@ class RasterizeCore(torch.autograd.Function):
         maps = dict(zip(_SAVED, saved))
         bins = (dict(zip(_BINS, saved[len(_SAVED):]), tile=ctx.tile)
                 if ctx.tile else None)
+        textures, light = saved[-2:]
         fim = maps['face_index_map']
         face_shape, tex_shape, bg_shape = ctx.shapes
-        _, need_faces, need_tex, need_bg = ctx.needs_input_grad
+        _, need_faces, need_tex, need_bg, need_light = ctx.needs_input_grad
         bs, nf = face_shape[:2]
         ts = tex_shape[2]
         dev = fim.device
@@ -257,7 +269,7 @@ class RasterizeCore(torch.autograd.Function):
             with tracing.span('backward.reduce'):
                 sums = backward_cuda.face_reduce(stack, fim, nf, k6, bins)
 
-        grad_faces = grad_textures = grad_bg = None
+        grad_faces = grad_textures = grad_bg = grad_light = None
         if need_faces:
             if sums is None:
                 # nothing drawn: no K5 or K7 term, the gradient is zeros
@@ -266,7 +278,7 @@ class RasterizeCore(torch.autograd.Function):
             with tracing.span('backward.scatter'):
                 grad_faces = backward_cuda.face_grad(
                     sums, face_shape, k5, (12 if k5 else 0) if k7 else None)
-        if need_tex:
+        if need_tex or need_light:
             if k6 is not None:
                 grad_textures = sums[:, -ts ** 3 * 3:].reshape(tex_shape)
             elif s.return_rgb:
@@ -274,10 +286,17 @@ class RasterizeCore(torch.autograd.Function):
                     grad_textures = tex.grad_textures(
                         s, fim, maps['z'].permute(0, 2, 3, 1),
                         maps['weights'].permute(0, 2, 3, 1),
-                        maps['depth_map'], g_rgb, tex_shape, bins)
+                        maps['depth_map'], g_rgb, tex_shape, bins, textures,
+                        light)
+                if light is not None:
+                    # one scatter gives both (the cube is written even
+                    # where only the light's gradient is asked for)
+                    grad_textures, grad_light = grad_textures
+                    grad_light = grad_light if need_light else None
             else:
                 grad_textures = torch.zeros(tex_shape, dtype=torch.float32,
                                             device=dev)
+            grad_textures = grad_textures if need_tex else None
         if need_bg:
             # exact: d(rgb_out)/d(bg) = 1 - coverage (JAX core.py:724-739);
             # the reference treats the background as a constant
@@ -291,9 +310,9 @@ class RasterizeCore(torch.autograd.Function):
             else:
                 grad_bg = torch.zeros(bg_shape, dtype=torch.float32,
                                       device=dev)
-        return None, grad_faces, grad_textures, grad_bg
+        return None, grad_faces, grad_textures, grad_bg, grad_light
 
 
-def rasterize_core(settings, faces, textures, background):
+def rasterize_core(settings, faces, textures, background, light=None):
     """Forward through ``RasterizeCore`` (see there)."""
-    return RasterizeCore.apply(settings, faces, textures, background)
+    return RasterizeCore.apply(settings, faces, textures, background, light)

@@ -12,7 +12,7 @@ import math
 import torch
 
 from neural_renderer_torch import tracing
-from neural_renderer_torch.ops.lighting import lighting
+from neural_renderer_torch.ops.lighting import face_light, light_cubes
 from neural_renderer_torch.ops.transforms import look, look_at, perspective
 from neural_renderer_torch.ops.vertices_to_faces import (
     fill_back_faces,
@@ -24,6 +24,7 @@ from neural_renderer_torch.rasterize.api import (
     rasterize_rgbad,
     rasterize_silhouettes,
 )
+from neural_renderer_torch.rasterize import forward_cuda
 from neural_renderer_torch.rasterize.config import place
 
 
@@ -136,34 +137,52 @@ class Renderer(object):
             self._camera_faces(vertices, faces), self.image_size,
             self.anti_aliasing, face_group=self.face_group)
 
-    def _lit_faces(self, vertices, faces, textures):
+    def _shaded_faces(self, vertices, faces, textures):
         """fill_back, lighting on world-space face coords
         (renderer.py:82-90), then the camera transform of the gathered
-        coords (pointwise, so exact)."""
+        coords (pointwise, so exact): (face coords, textures, light) as
+        ``_light`` hands them on."""
         with tracing.span('scene'):
             vertices, faces, textures = self._mesh(vertices, faces, textures)
             with tracing.span('scene.gather'):
                 faces_lighting = vertices_to_faces(
                     vertices, faces, self.face_group, self.fill_back)
             with tracing.span('scene.lighting'):
-                textures = tracing.backward('lighting', self._light,
-                                            faces_lighting, textures)
+                textures, light = tracing.backward(
+                    'lighting', self._light, faces_lighting, textures)
             with tracing.span('scene.camera'):
                 return tracing.backward('camera', self._transform_faces,
-                                        faces_lighting), textures
+                                        faces_lighting), textures, light
+
+    def _lit_faces(self, vertices, faces, textures):
+        """(face coords, lit texture cubes): the scene as ``rasterize``
+        takes it without a light, at every ts."""
+        face_coords, textures, light = self._shaded_faces(vertices, faces,
+                                                          textures)
+        if light is not None:
+            textures = light_cubes(textures, light)
+        return face_coords, textures
 
     def _light(self, faces_lighting, textures):
-        """fill_back of the texture cubes, then the lighting."""
+        """fill_back of the texture cubes, then the per-face light:
+        (cubes, light).  Where the rasterizer samples the cubes in plain
+        torch (ts above ``forward_cuda.MAX_FUSED_TS``) the cubes stay unlit
+        and the light ``[bs, nf', 3]`` goes on to the rasterizer, which
+        applies it per texel read and per term of the texture gradient, so
+        no lit cube is made; smaller cubes, which the fused forward and
+        the reduction's K6 read lit, come back lit, the light None."""
         if self.fill_back:
             textures = self._fill_back_textures(textures)
-        return lighting(
+        light = face_light(
             faces_lighting,
-            textures,
             self.light_intensity_ambient,
             self.light_intensity_directional,
             self.light_color_ambient,
             self.light_color_directional,
             self.light_direction)
+        if textures.shape[2] > forward_cuda.MAX_FUSED_TS:
+            return textures, light
+        return light_cubes(textures, light), None
 
     def render(self, vertices, faces, textures):
         with tracing.span('render'):
@@ -171,11 +190,12 @@ class Renderer(object):
                                     textures)
 
     def _rgb(self, vertices, faces, textures):
-        face_coords, textures = self._lit_faces(vertices, faces, textures)
+        face_coords, textures, light = self._shaded_faces(vertices, faces,
+                                                          textures)
         return rasterize(
             face_coords, textures, self.image_size, self.anti_aliasing,
             self.near, self.far, self.rasterizer_eps,
-            self.background_color, self.face_group)
+            self.background_color, self.face_group, light)
 
     def render_rgbad(self, vertices, faces, textures):
         """All three channels in one pass (no reference Renderer method, but
@@ -186,8 +206,9 @@ class Renderer(object):
                                     textures)
 
     def _rgbad(self, vertices, faces, textures):
-        face_coords, textures = self._lit_faces(vertices, faces, textures)
+        face_coords, textures, light = self._shaded_faces(vertices, faces,
+                                                          textures)
         return rasterize_rgbad(
             face_coords, textures, self.image_size, self.anti_aliasing,
             self.near, self.far, self.rasterizer_eps,
-            self.background_color, True, True, True, self.face_group)
+            self.background_color, True, True, True, self.face_group, light)

@@ -59,9 +59,15 @@ spans.  The spans are the layer boundaries of a call:
     card that took the 8-corner scatter (``texture.grad_textures``, cubes
     above ts 4, one ``launch.tex_scatter`` each) and the cells it writes
     (``bs * nf * ts^3``); none at ts <= 4, in a silhouette step or under
-    no_grad.  A shape the host knows.
+    no_grad.  A shape the host knows;
+  * ``light.folded``: renders whose per-face light was applied where the
+    cubes are read, in sampling and the texture scatter, and never
+    multiplied into a cube (``api.rasterize_rgbad`` given a light for cubes
+    above ts 4, as the ``Renderer`` gives one): 1 such a render, 0 at
+    ts <= 4, for silhouettes and depth, and for lit cubes.  A shape the
+    host knows, on either device.
 
-The plain CPU paths count nothing.
+The plain CPU paths count nothing else.
 """
 
 import collections

@@ -99,6 +99,20 @@ def _port(cfg, vertices, faces, textures, eyes):
     return image.detach(), {'vertices': gv, 'textures': gt}
 
 
+def _port_lit(cfg, vertices, faces, textures, eyes):
+    """``_port`` by the lit-cube route: the whole filled cube scaled by
+    the light (``Renderer._lit_faces``), then ``rasterize`` without a
+    light."""
+    v = vertices.clone().requires_grad_(True)
+    t = textures.clone().requires_grad_(True)
+    r = _renderer(cfg, eyes)
+    face_coords, lit = r._lit_faces(v, faces, t)
+    image = nt.rasterize(face_coords, lit, r.image_size, r.anti_aliasing,
+                         r.near, r.far, r.rasterizer_eps, r.background_color)
+    gv, gt = torch.autograd.grad(image.sum(), [v, t])
+    return image.detach(), {'vertices': gv, 'textures': gt}
+
+
 @pytest.mark.parametrize('anti_aliasing', [True, False])
 def test_render_and_grads_match_reference(anti_aliasing):
     cfg = _config(anti_aliasing)
@@ -129,7 +143,10 @@ class _FakeTexScatter:
     its tile (``tex_scatter_rows_kernel``, into the scratch it is handed),
     and sums each face's cube in the kernel's order: the face's rows, the
     pixels it won in tile order, then its 8 corners, each term in the
-    kernel's float32 operations.  Every cell is written."""
+    kernel's float32 operations.  Every cell is written.  With a light
+    (unlit cubes) each term's rgb gradient is scaled by the face's light,
+    and the light's gradient sums each pixel's ``g * s`` in the same order,
+    ``s`` its 8 corners' ``w * texel`` added in corner order."""
 
     launches = 0
 
@@ -143,6 +160,11 @@ class _FakeTexScatter:
             address)) if n else np.zeros(0, np.int32)
 
     @staticmethod
+    def _floats(address, n):
+        return np.ctypeslib.as_array((ctypes.c_float * n).from_address(
+            address))
+
+    @staticmethod
     def _strided(address, strides, shape):
         span = 1 + sum((n - 1) * s for n, s in zip(shape, strides))
         buf = np.ctypeslib.as_array((ctypes.c_float * span).from_address(
@@ -153,7 +175,7 @@ class _FakeTexScatter:
     @classmethod
     def nr_tex_scatter(cls, fim, start, order, first, row_tile, pairs, bs,
                        nf, is_, ts, maps, strides, hi, out, out_floats,
-                       stream):
+                       textures, light, grad_light, stream):
         cls.launches += 1
         assert out_floats == 3 * bs * nf * ts ** 3
         f32 = np.float32
@@ -189,6 +211,12 @@ class _FakeTexScatter:
             lo = np.clip(tif.astype(np.int32), 0, ts - 2)
         frac = tif - lo.astype(f32)
         grad = np.stack([g[b, c, y, x] for c in range(3)], 1)
+        scaled = grad
+        if light is not None:
+            unlit = cls._floats(textures, out_floats).reshape(-1, 3)
+            scaled = grad * cls._floats(light, bs * nf * 3).reshape(-1, 3)[
+                seg]
+            sample = np.zeros_like(grad)
         cells, terms = [], []
         for pn in range(8):
             bit = [(pn >> k) & 1 for k in range(3)]
@@ -196,7 +224,14 @@ class _FakeTexScatter:
                  for k in range(3)]
             ii = [lo[:, k] + bit[k] for k in range(3)]
             cells.append(seg * ts ** 3 + (ii[0] * ts + ii[1]) * ts + ii[2])
-            terms.append(((a[0] * a[1]) * a[2])[:, None] * grad)
+            w = (a[0] * a[1]) * a[2]
+            terms.append(w[:, None] * scaled)
+            if light is not None:
+                sample = sample + w[:, None] * unlit[cells[-1]]
+        if light is not None:
+            gl = np.zeros((bs * nf, 3), f32)
+            np.add.at(gl, seg, grad * sample)
+            cls._floats(grad_light, bs * nf * 3)[:] = gl.reshape(-1)
         cube = np.zeros((bs * nf * ts ** 3, 3), f32)
         # pixel-major: each cell's terms added one after another in order
         np.add.at(cube, np.stack(cells, 1).reshape(-1),
@@ -247,10 +282,11 @@ def test_card_route_counts_and_equals_the_plain_scatter(scatter_on_card,
     ``bs * nf' * ts^3`` cells, and hands no rows to a sort; its texture
     gradient is the plain scatter's within ``SEGMENT_TOL`` (the same terms
     summed in the kernel's order), its vertex gradient and image the plain
-    route's bit for bit."""
+    route's bit for bit.  The cubes come lit (``_port_lit``), so the
+    scatter applies no light and gives no light's gradient."""
     cfg = _config(True)
     vertices, faces, textures, eyes = _scene(cfg, 2410)
-    got = _port(cfg, vertices, faces, textures, eyes)
+    got = _port_lit(cfg, vertices, faces, textures, eyes)
     counts = tracing.counts()
     nfp = 2 * faces.shape[1]
     assert _FakeTexScatter.launches == 1
@@ -259,13 +295,45 @@ def test_card_route_counts_and_equals_the_plain_scatter(scatter_on_card,
     assert counts['work.k6_scatter_cells'] == BS * nfp * TS ** 3 \
         == 40_370_176
     assert 'work.k6_scatter_rows' not in counts
+    assert 'light.folded' not in counts
+    monkeypatch.setattr(tex, 'on_card', lambda t: False)
+    tracing.reset()
+    want = _port_lit(cfg, vertices, faces, textures, eyes)
+    assert not any(k.startswith(('k6.', 'work.k6', 'launch.')) for k in
+                   tracing.counts())
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1]['vertices'], want[1]['vertices'])
+    _within_segment_tol(got[1]['textures'], want[1]['textures'])
+
+
+def test_card_route_with_the_light_folded_equals_the_plain_scatter(
+        scatter_on_card, monkeypatch):
+    """The ``Renderer``'s step at ts 16 hands the rasterizer unlit cubes
+    and their light: one scatter launch gives the texture gradient and the
+    light's, counted as the lit route's plus ``light.folded``.  Its image
+    is the plain route's bit for bit, its texture gradient within
+    ``SEGMENT_TOL`` of the column's max, and its vertex gradient within
+    ``SEGMENT_TOL`` of its largest magnitude: the light's gradient, which
+    reaches the vertices through the normals, is summed in the kernel's
+    order on the card and in pixel order in the plain scatter."""
+    cfg = _config(True)
+    vertices, faces, textures, eyes = _scene(cfg, 2410)
+    got = _port(cfg, vertices, faces, textures, eyes)
+    counts = tracing.counts()
+    nfp = 2 * faces.shape[1]
+    assert _FakeTexScatter.launches == 1
+    assert counts['light.folded'] == 1
+    assert counts['launch.tex_scatter'] == 1
+    assert counts['k6.scatter'] == 1
+    assert counts['work.k6_scatter_cells'] == BS * nfp * TS ** 3
     monkeypatch.setattr(tex, 'on_card', lambda t: False)
     tracing.reset()
     want = _port(cfg, vertices, faces, textures, eyes)
     assert not any(k.startswith(('k6.', 'work.k6', 'launch.')) for k in
                    tracing.counts())
     assert torch.equal(got[0], want[0])
-    assert torch.equal(got[1]['vertices'], want[1]['vertices'])
+    gap = (got[1]['vertices'] - want[1]['vertices']).abs().max()
+    assert float(gap) <= SEGMENT_TOL * float(want[1]['vertices'].abs().max())
     _within_segment_tol(got[1]['textures'], want[1]['textures'])
 
 
